@@ -12,11 +12,25 @@ result line):
   3. K1 (closest hit) against its plain twin on the castle 640x480
      frame's own primary-ray batch: tri agreement, hit/miss flips,
      t relative and u/v absolute error p99, bias equality, kernel/plain
-     ms, and the bound from the pairs the launch tested and kept;
+     ms, and the bound from the pairs that reached each stage of the
+     pair test in this launch;
   4. K2 (occlusion) the same way on the frame's batched shadow launch;
-  5. main path: >= 10 castle frames through Device.draw(), with the
+  5. main path: 10 castle frames through Device.draw(), with the
      launch counters set to 0 just before and read just after;
   6. sample scene 320x240 rendered on the card and on the CPU, SSIM;
+  7. K3 (closest hit, 128-triangle clusters) against its plain twin on
+     the primary launch of a large-castle 1280x720 GI frame, K1 on the
+     same rays and scene for comparison, and K3 against its twin on the
+     frame's regrouped bounce launch (incoherent rays, long visit
+     lists: the frame's dearest K3 launch);
+  8. K4 (occlusion) the same way on that frame's largest shadow launch,
+     with K2 on the same rays, and on its bounce-shadow launch;
+  9. large-scene GI path: 10 frames of the large castle (32,768-triangle
+     bucket, beyond the size switch) at 1280x720 with di 1, gi 1 and the
+     denoiser (which turns GI reprojection on) through Device.draw();
+     K3 and K4 must launch, K1 and K2 must not, history must be read;
+ 10. castle 160x120 with GI (K1/K2 path, regrouped bounce rays), two
+     frames on the card and on the CPU, SSIM;
 then the kernel table line and the result line.
 
 It imports torch, numpy and rt64tpu_torch only.
@@ -32,16 +46,33 @@ import time
 HBM_BYTES_PER_S = 3.35e12
 FP32_FLOPS_PER_S = 67e12
 # FP32 work of one (ray, triangle) pair, counted as the function needs
-# it: every pair a live, unblocked ray tests pays the keep test
-# r_z = W[2] d (3 products, 2 sums); only a pair that passes it pays the
-# rest of the Woop test. K1: s_z (6), t = -s_z / r_z (1), s_x r_x s_y
-# r_y (22), u, v (4), u + v (1), key (1). K2: s_z (6), q, p (2),
-# t_min q, t_max q (2), s_x r_x s_y r_y (22), uq, vq (6), uq + vq (1).
-FLOPS_KEEP_TEST = 5
-FLOPS_TAIL_K1 = 35
-FLOPS_TAIL_K2 = 39
+# it. The pair test returns early after every stage, so a stage is
+# charged only to the pairs that reached it: the kernels' counting
+# instantiations report, per launch, the pairs that live, unblocked rays
+# tested and the pairs that passed stages 1 to 4 (packet_tracer.cu,
+# STATS_COLS). FLOPS_<kernel>[k] is the cost of the stage that a pair
+# reaches by passing k stages.
+# K1 (Woop): the keep test r_z = W[2] d (3 products, 2 sums); then
+# s_z (6) and t = -s_z / r_z (1); then, t in range, s_x (6), r_x (5),
+# u = s_x + t r_x (2); then, u >= 0, s_y (6), r_y (5), v (2), u + v (1);
+# a hit pays the key t - bias (1).
+FLOPS_K1 = (5, 7, 13, 14, 1)
+# K2 (Woop, division-free): r_z (5); then s_z (6), q, p (2), t_min q,
+# t_max q (2); then, t in range, s_x r_x s_y r_y (22), uq, vq (6),
+# uq + vq (1). A hit pays nothing more.
+FLOPS_K2 = (5, 10, 29, 0, 0)
+# K3/K4 (Moller-Trumbore): a pair of a live, unblocked ray and an active
+# triangle pays p = d x e2 (9) and det = e1 . p (5); then, the
+# determinant passed, 1 / det (1), o - v0 (3), u (6); then, u >= 0,
+# q = tvec x e1 (9), v (6), u + v (1); then, v and u + v passed, t (6);
+# a hit pays, in K3, the key t - bias (1).
+FLOPS_K3 = (14, 10, 16, 6, 1)
+FLOPS_K4 = (14, 10, 16, 6, 0)
 CASTLE_W, CASTLE_H = 640, 480
 MAIN_FRAMES = 10
+LARGE_W, LARGE_H = 1280, 720
+LARGE_TERRAIN_N = 128
+LARGE_FRAMES = 10
 
 
 class SmokeFailure(RuntimeError):
@@ -81,162 +112,381 @@ def bound_ms(n_bytes, n_flops):
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+WRAPPERS = ("trace_opaque_blocks", "trace_shadow_blocks",
+            "trace_opaque_mt_blocks", "trace_shadow_mt_blocks",
+            "prepare_opaque", "prepare_shadow")
+
+
 def capture_launches(draw):
-    """Run one draw with the kernel wrappers wrapped by recorders and
-    return the inputs of the last K1 and K2 launch of that frame."""
+    """Run one draw with the kernel wrappers and the packet preps wrapped
+    by recorders; returns {name: [(args, kwargs), ...]} in call order."""
     from rt64tpu_torch.ops import tracer_cuda as tc
 
-    seen = {}
-    orig_k1, orig_k2 = tc.trace_opaque_blocks, tc.trace_shadow_blocks
+    seen = {name: [] for name in WRAPPERS}
+    originals = {name: getattr(tc, name) for name in WRAPPERS}
 
-    def rec_k1(*args, **kw):
-        seen["k1"] = (args, kw)
-        return orig_k1(*args, **kw)
+    def recorder(name):
+        def rec(*args, **kw):
+            seen[name].append((args, kw))
+            return originals[name](*args, **kw)
+        return rec
 
-    def rec_k2(*args, **kw):
-        seen["k2"] = (args, kw)
-        return orig_k2(*args, **kw)
-
-    tc.trace_opaque_blocks, tc.trace_shadow_blocks = rec_k1, rec_k2
+    for name in WRAPPERS:
+        setattr(tc, name, recorder(name))
     try:
         draw()
     finally:
-        tc.trace_opaque_blocks, tc.trace_shadow_blocks = orig_k1, orig_k2
-    check("k1" in seen and "k2" in seen, "the frame launched no K1 or K2")
-    return seen["k1"], seen["k2"]
+        for name in WRAPPERS:
+            setattr(tc, name, originals[name])
+    return seen
 
 
-def phase_k1(k1_call):
+def counted_work(stats, flops_by_stage):
+    """Sum a counting launch's per-block rows and charge each stage to
+    the pairs that reached it (the tested pairs, then those past stages
+    1 to 4): the fields of the phase's line."""
+    walked, tested, *passed = (int(x) for x in stats.sum(dim=0))
+    flops = sum(f * n for f, n in zip(flops_by_stage, [tested] + passed))
+    return dict(visits_walked=walked,
+                visits_walked_longest_block=int(stats[:, 0].max()),
+                pairs_tested=tested, pairs_past_stage=passed,
+                flops_per_pair_by_stage=list(flops_by_stage), flops=flops)
+
+
+def largest(calls):
+    """The recorded call with the most rays (its first argument is
+    rays8 for a kernel wrapper, origins for a prep)."""
+    return max(calls, key=lambda c: c[0][0].shape[1])
+
+
+def closest_hit_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
+    """Hold a closest-hit kernel (K1 or K3) against its plain twin on one
+    recorded launch, time both, and bound it by the counted work."""
     import torch
     from rt64tpu_torch.ops import tracer_cuda as tc
 
-    (rays8, clusters, visits, counts, entries, cull), _ = k1_call
+    (rays8, clusters, visits, counts, entries, cull), _ = call
     n = rays8.shape[1]
     args = (rays8, clusters, visits, counts, entries, cull)
-    t_k, tri_k, u_k, v_k, b_k = tc.trace_opaque_blocks(*args)
-    t_p, tri_p, u_p, v_p, b_p = tc.trace_opaque_plain(*args)
+    t_k, tri_k, u_k, v_k, b_k = wrapper(*args)
+    t_p, tri_p, u_p, v_p, b_p = twin(*args)
     # The counting instantiation: the work this run's data needs.
-    stats = torch.empty((counts.shape[0], 3), dtype=torch.int64,
+    stats = torch.empty((counts.shape[0], tc.STATS_COLS), dtype=torch.int64,
                         device=rays8.device)
-    t_s, tri_s, u_s, v_s, b_s = tc.trace_opaque_blocks(*args, stats=stats)
+    t_s, tri_s, u_s, v_s, b_s = wrapper(*args, stats=stats)
     torch.cuda.synchronize()
     agree = (tri_k == tri_p).float().mean().item()
     flips = ((tri_k >= 0) != (tri_p >= 0)).float().mean().item()
     same = (tri_k == tri_p) & (tri_k >= 0)
-    check(bool(same.any()), "K1 and its plain twin share no hit")
+    check(bool(same.any()), f"{tag} and its plain twin share no hit")
     abs_err = lambda a, b: (a[same] - b[same]).abs().double()
     rel = abs_err(t_k, t_p) / t_p[same].abs().clamp(min=1e-6)
-    rel_p99 = torch.quantile(rel, 0.99).item()
-    uv_p99 = max(torch.quantile(abs_err(u_k, u_p), 0.99).item(),
-                 torch.quantile(abs_err(v_k, v_p), 0.99).item())
+    rel_p99 = quantile(rel, 0.99)
+    uv_p99 = max(quantile(abs_err(u_k, u_p), 0.99),
+                 quantile(abs_err(v_k, v_p), 0.99))
     errs = {k: abs_err(a, b).max().item() for k, a, b in (
         ("t", t_k, t_p), ("u", u_k, u_p), ("v", v_k, v_p), ("bias", b_k, b_p))}
     stats_same = all(torch.equal(a, b) for a, b in (
         (t_s, t_k), (tri_s, tri_k), (u_s, u_k), (v_s, v_k), (b_s, b_k)))
-    ms = time_ms(lambda: tc.trace_opaque_blocks(*args), reps=25)
-    plain_ms = time_ms(lambda: tc.trace_opaque_plain(*args), reps=5, warmup=1)
-    walked, tested, kept = (int(x) for x in stats.sum(dim=0))
-    flops = FLOPS_KEEP_TEST * tested + FLOPS_TAIL_K1 * kept
+    del t_p, tri_p, u_p, v_p, b_p, t_s, tri_s, u_s, v_s, b_s
+    ms = time_ms(lambda: wrapper(*args), reps=25)
+    plain_ms = time_ms(lambda: twin(*args), reps=plain_reps, warmup=1)
+    work = counted_work(stats, flops_by_stage)
     n_bytes = sum(a.numel() * a.element_size()
                   for a in (rays8, clusters, visits, counts, entries))
     n_bytes += 5 * 4 * n
-    bms, by = bound_ms(n_bytes, flops)
-    row = dict(phase="k1", rays=n, blocks=counts.shape[0],
+    bms, by = bound_ms(n_bytes, work["flops"])
+    row = dict(phase=tag, rays=n, blocks=counts.shape[0],
+               clusters=clusters.shape[0] - 1,
+               cluster_triangles=clusters.shape[2],
                tri_agreement=agree, hit_miss_flips=flips,
                t_rel_err_p99=rel_p99, uv_abs_err_p99=uv_p99,
                max_abs_err=max(errs.values()), max_abs_err_by_output=errs,
                counting_launch_same=stats_same,
-               visits_listed=int(counts.sum()), visits_walked=walked,
-               pairs_tested=tested, pairs_kept=kept, flops=flops,
+               visits_listed=int(counts.sum()), **work,
                bytes=n_bytes, ms=ms, plain_ms=plain_ms,
                bound_ms=bms, bound_by=by)
     emit(row)
-    check(agree >= 0.999, f"K1 tri agreement {agree} < 0.999")
-    check(flips < 0.001, f"K1 hit/miss flips {flips} >= 0.001")
-    check(rel_p99 < 1e-3, f"K1 t rel err p99 {rel_p99} >= 1e-3")
-    check(uv_p99 < 1e-3, f"K1 u/v abs err p99 {uv_p99} >= 1e-3")
-    check(errs["bias"] == 0.0, f"K1 bias differs by {errs['bias']}")
-    check(stats_same, "K1's counting launch gave another result")
+    check(agree >= 0.999, f"{tag} tri agreement {agree} < 0.999")
+    check(flips < 0.001, f"{tag} hit/miss flips {flips} >= 0.001")
+    check(rel_p99 < 1e-3, f"{tag} t rel err p99 {rel_p99} >= 1e-3")
+    check(uv_p99 < 1e-3, f"{tag} u/v abs err p99 {uv_p99} >= 1e-3")
+    check(errs["bias"] == 0.0, f"{tag} bias differs by {errs['bias']}")
+    check(stats_same, f"{tag}'s counting launch gave another result")
     return row
 
 
-def phase_k2(k2_call):
+def quantile(x, q):
+    """torch.quantile takes at most 2^24 elements: sort instead."""
+    x = x.flatten().sort().values
+    return x[min(int(q * x.numel()), x.numel() - 1)].item()
+
+
+def occlusion_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
+    """Hold an occlusion kernel (K2 or K4) against its plain twin on one
+    recorded launch, time both, and bound it by the counted work."""
     import torch
     from rt64tpu_torch.ops import tracer_cuda as tc
 
-    (rays8, clusters, visits, counts, entries), _ = k2_call
+    (rays8, clusters, visits, counts, entries), _ = call
     n = rays8.shape[1]
     args = (rays8, clusters, visits, counts, entries)
-    bl_k = tc.trace_shadow_blocks(*args)
-    bl_p = tc.trace_shadow_plain(*args)
-    stats = torch.empty((counts.shape[0], 3), dtype=torch.int64,
+    bl_k = wrapper(*args)
+    bl_p = twin(*args)
+    stats = torch.empty((counts.shape[0], tc.STATS_COLS), dtype=torch.int64,
                         device=rays8.device)
-    bl_s = tc.trace_shadow_blocks(*args, stats=stats)
+    bl_s = wrapper(*args, stats=stats)
     torch.cuda.synchronize()
     agree = (bl_k == bl_p).float().mean().item()
     max_abs = (bl_k - bl_p).abs().max().item()
     stats_same = torch.equal(bl_s, bl_k)
-    ms = time_ms(lambda: tc.trace_shadow_blocks(*args), reps=25)
-    plain_ms = time_ms(lambda: tc.trace_shadow_plain(*args), reps=5, warmup=1)
-    walked, tested, kept = (int(x) for x in stats.sum(dim=0))
-    flops = FLOPS_KEEP_TEST * tested + FLOPS_TAIL_K2 * kept
+    ms = time_ms(lambda: wrapper(*args), reps=25)
+    plain_ms = time_ms(lambda: twin(*args), reps=plain_reps, warmup=1)
+    work = counted_work(stats, flops_by_stage)
     n_bytes = sum(a.numel() * a.element_size() for a in args)
     n_bytes += 4 * n
-    bms, by = bound_ms(n_bytes, flops)
+    bms, by = bound_ms(n_bytes, work["flops"])
     live = int((rays8[7] >= rays8[6]).sum())
-    row = dict(phase="k2", rays=n, live_rays=live, blocks=counts.shape[0],
+    row = dict(phase=tag, rays=n, live_rays=live, blocks=counts.shape[0],
+               clusters=clusters.shape[0] - 1,
+               cluster_triangles=clusters.shape[2],
                blocked_agreement=agree, blocked_k=int(bl_k.sum()),
                blocked_plain=int(bl_p.sum()), counting_launch_same=stats_same,
-               visits_listed=int(counts.sum()), visits_walked=walked,
-               pairs_tested=tested, pairs_kept=kept, flops=flops,
+               visits_listed=int(counts.sum()), **work,
                bytes=n_bytes, ms=ms, plain_ms=plain_ms, bound_ms=bms,
                bound_by=by, max_abs_err=max_abs)
     emit(row)
-    check(agree >= 0.999, f"K2 blocked agreement {agree} < 0.999")
-    check(stats_same, "K2's counting launch gave another result")
+    check(agree >= 0.999, f"{tag} blocked agreement {agree} < 0.999")
+    check(stats_same, f"{tag}'s counting launch gave another result")
     return row
 
 
-def phase_main_path():
-    import numpy as np
+def phase_k1(call):
+    from rt64tpu_torch.ops import tracer_cuda as tc
+
+    return closest_hit_phase("k1", call, tc.trace_opaque_blocks,
+                             tc.trace_opaque_plain, FLOPS_K1, plain_reps=5)
+
+
+def phase_k2(call):
+    from rt64tpu_torch.ops import tracer_cuda as tc
+
+    return occlusion_phase("k2", call, tc.trace_shadow_blocks,
+                           tc.trace_shadow_plain, FLOPS_K2, plain_reps=5)
+
+
+def same_rays_other_table(tag, prep_call, prep, wrapper, extra=()):
+    """Time the 64-triangle kernel (K1 or K2) on the rays and scene of a
+    recorded 128-triangle launch: the table fits either way, so this is
+    what the size switch costs or pays on this card. The switch constant
+    is raised for the prep alone."""
     import torch
     from rt64tpu_torch.ops import tracer_cuda as tc
+
+    args, _ = prep_call
+    table_bytes = tc.RESIDENT_TABLE_BYTES
+    tc.RESIDENT_TABLE_BYTES = 1 << 40
+    try:
+        p = prep(*args)
+    finally:
+        tc.RESIDENT_TABLE_BYTES = table_bytes
+    check(not p.mt, f"{tag}: the prep did not build the Woop table")
+    call = lambda: wrapper(p.rays8, p.clusters, p.visits, p.counts,
+                           p.entries, *extra)
+    out = call()
+    torch.cuda.synchronize()
+    ms = time_ms(call, reps=25)
+    row = dict(phase=tag, rays=p.rays8.shape[1], blocks=p.counts.shape[0],
+               clusters=p.clusters.shape[0] - 1,
+               visits_listed=int(p.counts.sum()), ms=ms)
+    return row, out
+
+
+def phase_k3(seen):
+    """K3 on the frame's primary launch (its first closest-hit launch),
+    K1 on the same rays and scene, and K3 on the frame's last closest-hit
+    launch: the regrouped GI bounce rays."""
+    from rt64tpu_torch.ops import tracer_cuda as tc
+
+    calls = seen["trace_opaque_mt_blocks"]
+    check(len(calls) >= 2, f"the large GI frame launched K3 {len(calls)} times")
+    call = calls[0]
+    row = closest_hit_phase("k3", call, tc.trace_opaque_mt_blocks,
+                            tc.trace_opaque_mt_plain, FLOPS_K3, plain_reps=3)
+    row["bounce"] = closest_hit_phase(
+        "k3_bounce", calls[-1], tc.trace_opaque_mt_blocks,
+        tc.trace_opaque_mt_plain, FLOPS_K3, plain_reps=1)
+    cull = call[0][5]
+    k1, (_, tri_w, _, _, _) = same_rays_other_table(
+        "k1_on_k3_rays", seen["prepare_opaque"][0], tc.prepare_opaque,
+        tc.trace_opaque_blocks, extra=(cull,))
+    _, tri_m, _, _, _ = tc.trace_opaque_mt_blocks(*call[0])
+    k1["tri_agreement_with_k3"] = (tri_w == tri_m).float().mean().item()
+    k1["k3_ms"] = row["ms"]
+    k1["k3_over_k1"] = row["ms"] / k1["ms"]
+    emit(k1)
+    check(k1["tri_agreement_with_k3"] >= 0.999,
+          f"K1 and K3 agree on {k1['tri_agreement_with_k3']} of the rays")
+    return row
+
+
+def phase_k4(seen):
+    """K4 on the frame's largest occlusion launch (the direct-light
+    shadow rays), K2 on the same rays and scene, and K4 on the frame's
+    last occlusion launch: the regrouped shadow rays of the bounce
+    points."""
+    from rt64tpu_torch.ops import tracer_cuda as tc
+
+    calls = seen["trace_shadow_mt_blocks"]
+    check(len(calls) >= 2, f"the large GI frame launched K4 {len(calls)} times")
+    call = largest(calls)
+    check(call is not calls[-1], "the bounce-shadow launch is the largest")
+    row = occlusion_phase("k4", call, tc.trace_shadow_mt_blocks,
+                          tc.trace_shadow_mt_plain, FLOPS_K4, plain_reps=3)
+    row["bounce"] = occlusion_phase(
+        "k4_bounce", calls[-1], tc.trace_shadow_mt_blocks,
+        tc.trace_shadow_mt_plain, FLOPS_K4, plain_reps=1)
+    k2, bl_w = same_rays_other_table(
+        "k2_on_k4_rays", largest(seen["prepare_shadow"]), tc.prepare_shadow,
+        tc.trace_shadow_blocks)
+    bl_m = tc.trace_shadow_mt_blocks(*call[0])
+    check(bl_w.shape == bl_m.shape, "K2 and K4 saw different ray batches")
+    k2["blocked_agreement_with_k4"] = (bl_w == bl_m).float().mean().item()
+    k2["k4_ms"] = row["ms"]
+    k2["k4_over_k2"] = row["ms"] / k2["ms"]
+    emit(k2)
+    check(k2["blocked_agreement_with_k4"] >= 0.999,
+          f"K2 and K4 agree on {k2['blocked_agreement_with_k4']} of the rays")
+    return row
+
+
+def draw_frames(dev, frames):
+    """Draw `frames` frames with the launch counts set to 0 just before
+    and read just after: (frame ms list, counts dict, peak bytes)."""
+    import torch
+    from rt64tpu_torch.ops import tracer_cuda as tc
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tc.launch_counts.reset()
+    frame_ms = []
+    for _ in range(frames):
+        t0 = time.perf_counter()
+        dev.draw()
+        torch.cuda.synchronize()
+        frame_ms.append((time.perf_counter() - t0) * 1e3)
+    counts = dict(vars(tc.launch_counts))
+    return frame_ms, counts, torch.cuda.max_memory_allocated()
+
+
+def frame_row(phase, view, frames, frame_ms, counts, peak):
+    inst = view._renderer.instance_plane()
+    return dict(phase=phase, frames=frames,
+                frame_ms_median=statistics.median(frame_ms),
+                frame_ms_min=min(frame_ms[1:]), frame_ms_max=max(frame_ms[1:]),
+                frame_ms_first=frame_ms[0], frame_ms=frame_ms, **counts,
+                launches_per_frame={k: v / frames for k, v in counts.items()},
+                alpha_boost=view._renderer.alpha_boost,
+                alpha_dropped=int(view._renderer._last.alpha_dropped),
+                max_memory_allocated=peak,
+                hit_fraction=float((inst >= 0).mean()))
+
+
+def check_frame(row, view, w, h):
+    import numpy as np
+
+    fb = view.framebuffer()
+    check(fb.shape == (h, w, 4) and fb.dtype == np.uint8,
+          f"framebuffer {fb.shape} {fb.dtype}")
+    check(fb[..., :3].std() > 1.0, "framebuffer is constant")
+    check(row["hit_fraction"] > 0.0, "no hits in the instance plane")
+    check(row["alpha_dropped"] == 0,
+          f"alpha_dropped {row['alpha_dropped']} after the boost ladder")
+
+
+def phase_main_path():
     from rt64tpu_torch.utils.castle_scene import build_castle_scene
 
     dev, _, view = build_castle_scene(CASTLE_W, CASTLE_H, di_samples=1,
                                       gi_samples=0)
     view.max_reflections = 0
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    tc.launch_counts.reset()
-    frame_ms = []
-    for _ in range(MAIN_FRAMES):
-        t0 = time.perf_counter()
-        dev.draw()
-        torch.cuda.synchronize()
-        frame_ms.append((time.perf_counter() - t0) * 1e3)
-    k1 = tc.launch_counts.opaque_launches
-    k2 = tc.launch_counts.shadow_launches
-    peak = torch.cuda.max_memory_allocated()
-    fb = view.framebuffer()
-    inst = view._renderer.instance_plane()
-    dropped = int(view._renderer._last.alpha_dropped)
-    row = dict(phase="main_path", frames=MAIN_FRAMES,
-               frame_ms_median=statistics.median(frame_ms),
-               frame_ms_first=frame_ms[0], frame_ms=frame_ms,
-               opaque_launches=k1, shadow_launches=k2,
-               alpha_boost=view._renderer.alpha_boost, alpha_dropped=dropped,
-               max_memory_allocated=peak,
-               hit_fraction=float((inst >= 0).mean()))
+    frame_ms, counts, peak = draw_frames(dev, MAIN_FRAMES)
+    row = frame_row("main_path", view, MAIN_FRAMES, frame_ms, counts, peak)
     emit(row)
-    check(fb.shape == (CASTLE_H, CASTLE_W, 4) and fb.dtype == np.uint8,
-          f"framebuffer {fb.shape} {fb.dtype}")
-    check(fb[..., :3].std() > 1.0, "framebuffer is constant")
-    check((inst >= 0).any(), "no hits in the instance plane")
+    check_frame(row, view, CASTLE_W, CASTLE_H)
+    k1, k2 = counts["opaque_launches"], counts["shadow_launches"]
     check(k1 >= MAIN_FRAMES, f"K1 launched {k1} times in {MAIN_FRAMES} frames")
     check(k2 >= MAIN_FRAMES, f"K2 launched {k2} times in {MAIN_FRAMES} frames")
-    check(dropped == 0, f"alpha_dropped {dropped} after the boost ladder")
+    check(counts["opaque_mt_launches"] == 0 and counts["shadow_mt_launches"] == 0,
+          "the castle frame (below the size switch) launched K3 or K4")
     return row
+
+
+def build_large_castle():
+    from rt64tpu_torch.utils.castle_scene import build_castle_scene
+
+    dev, _, view = build_castle_scene(
+        LARGE_W, LARGE_H, di_samples=1, gi_samples=1, denoiser=True,
+        terrain_n=LARGE_TERRAIN_N)
+    view.max_reflections = 0
+    return dev, view
+
+
+def phase_large_gi():
+    from rt64tpu_torch.ops import tracer_cuda as tc
+
+    dev, view = build_large_castle()
+    frame_ms, counts, peak = draw_frames(dev, LARGE_FRAMES)
+    row = frame_row("large_gi", view, LARGE_FRAMES, frame_ms, counts, peak)
+    r = view._renderer
+    hist_len = r._last.indirect_accum[3]
+    row.update(
+        width=LARGE_W, height=LARGE_H, terrain_n=LARGE_TERRAIN_N,
+        triangles=r.packer.triangle_count,
+        triangle_bucket=int(r._sb.tri_valid.shape[0]),
+        clusters_resident=tc.clusters_resident(int(r._sb.tri_valid.shape[0])),
+        gi_hist_len_max=float(hist_len.max()),
+        gi_hist_len_mean=float(hist_len.mean()))
+    emit(row)
+    check_frame(row, view, LARGE_W, LARGE_H)
+    check(not row["clusters_resident"],
+          f"bucket {row['triangle_bucket']} lies below the size switch")
+    k3, k4 = counts["opaque_mt_launches"], counts["shadow_mt_launches"]
+    check(k3 >= LARGE_FRAMES, f"K3 launched {k3} times in {LARGE_FRAMES} frames")
+    check(k4 >= LARGE_FRAMES, f"K4 launched {k4} times in {LARGE_FRAMES} frames")
+    check(counts["opaque_launches"] == 0 and counts["shadow_launches"] == 0,
+          "the large frame launched K1 or K2")
+    check(row["gi_hist_len_max"] > 1.0, "GI history was never reprojected")
+    return row
+
+
+def phase_gi_small():
+    """GI and regrouping through K1/K2: the 16,384-bucket castle, two
+    frames (the second reads history), card against CPU. 160x120 keeps
+    the CPU side, which runs the plain twins, under a minute."""
+    from rt64tpu_torch.ops import tracer_cuda as tc
+    from rt64tpu_torch.utils.castle_scene import build_castle_scene
+    from rt64tpu_torch.utils.ssim import ssim
+
+    w, h = 160, 120
+    fbs, seconds = {}, {}
+    tc.launch_counts.reset()
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        dev, _, view = build_castle_scene(w, h, di_samples=1, gi_samples=1,
+                                          denoiser=True, device=where)
+        view.max_reflections = 0
+        dev.draw()
+        dev.draw()
+        fbs[where] = view.framebuffer()
+        seconds[where] = time.perf_counter() - t0
+    counts = dict(vars(tc.launch_counts))
+    s = ssim(fbs["cuda"][..., :3], fbs["cpu"][..., :3])
+    emit(dict(phase="gi_small_card_vs_cpu", width=w, height=h, frames=2,
+              ssim=s, seconds=seconds, **counts))
+    check(s >= 0.99, f"castle GI SSIM card vs CPU {s} < 0.99")
+    check(counts["opaque_launches"] >= 4 and counts["shadow_launches"] >= 4,
+          f"two GI frames launched K1/K2 {counts}")
 
 
 def phase_sample():
@@ -299,10 +549,12 @@ def run():
                                       gi_samples=0)
     view.max_reflections = 0
     dev.draw()  # settles the alpha boost ladder
-    k1_call, k2_call = capture_launches(dev.draw)
-    k1 = phase_k1(k1_call)
-    k2 = phase_k2(k2_call)
-    del dev, view, k1_call, k2_call
+    seen = capture_launches(dev.draw)
+    check(seen["trace_opaque_blocks"] and seen["trace_shadow_blocks"],
+          "the castle frame launched no K1 or K2")
+    k1 = phase_k1(seen["trace_opaque_blocks"][-1])
+    k2 = phase_k2(seen["trace_shadow_blocks"][-1])
+    del dev, view, seen
     torch.cuda.empty_cache()
 
     # 5. main path
@@ -311,18 +563,39 @@ def run():
     # 6. sample scene, card vs CPU
     phase_sample()
 
+    # 7-8. K3 and K4 on a large-castle GI frame's own launches
+    dev, view = build_large_castle()
+    dev.draw()  # settles the alpha boost ladder, fills the history
+    seen = capture_launches(dev.draw)
+    del dev, view
+    k3 = phase_k3(seen)
+    k4 = phase_k4(seen)
+    del seen
+    torch.cuda.empty_cache()
+
+    # 9. the large-scene GI path
+    large = phase_large_gi()
+    torch.cuda.empty_cache()
+
+    # 10. GI through K1/K2, card vs CPU
+    phase_gi_small()
+
     src = "rt64tpu_torch/csrc/packet_tracer.cu"
+    measured = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
+    # K3 and K4 also carry their bounce launch's numbers, as bounce_<key>.
+    kernel = lambda name, line, launches, row: dict(
+        name=name, route="cuda", source=src,
+        replaces=f"rt64tpu/ops/tracer_pallas.py:{line}", launches=launches,
+        **{k: row[k] for k in measured}, library_ms=None,
+        **{f"bounce_{k}": row["bounce"][k] for k in measured
+           if "bounce" in row})
     emit({"kernels": [
-        dict(name="trace_opaque_kernel (K1)", route="cuda", source=src,
-             replaces="rt64tpu/ops/tracer_pallas.py:764",
-             launches=main["opaque_launches"], max_abs_err=k1["max_abs_err"],
-             ms=k1["ms"], plain_ms=k1["plain_ms"], bound_ms=k1["bound_ms"],
-             bound_by=k1["bound_by"], library_ms=None),
-        dict(name="trace_shadow_kernel (K2)", route="cuda", source=src,
-             replaces="rt64tpu/ops/tracer_pallas.py:981",
-             launches=main["shadow_launches"], max_abs_err=k2["max_abs_err"],
-             ms=k2["ms"], plain_ms=k2["plain_ms"], bound_ms=k2["bound_ms"],
-             bound_by=k2["bound_by"], library_ms=None),
+        kernel("trace_opaque_kernel (K1)", 764, main["opaque_launches"], k1),
+        kernel("trace_shadow_kernel (K2)", 981, main["shadow_launches"], k2),
+        kernel("trace_opaque_mt_kernel (K3)", 572,
+               large["opaque_mt_launches"], k3),
+        kernel("trace_shadow_mt_kernel (K4)", 1303,
+               large["shadow_mt_launches"], k4),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

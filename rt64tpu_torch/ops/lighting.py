@@ -354,3 +354,33 @@ def trace_plans(plans, sb, tri_rows, trace_scene, shadow_k_alpha,
         shade_boost=shade_boost,
     )
     return list(torch.split(factors, widths)), dropped
+
+
+def compute_lights_random(
+    sb, tri_rows, trace_scene, pixel_xy, bn_table, frame_count,
+    ray_dir, position, normal, specular, ctx: LightingCtx,
+    max_light_count: int, di_samples: int, check_shadows: bool,
+    noise_rand, shadow_k_alpha: int = 1, opaque_fn=None,
+    alpha_compact: int = 0, shade_boost: int = 1,
+):
+    """ComputeLightsRandom (Lights.hlsli:115-168) for ONE light query:
+    plan, trace every round's shadow rays in one launch, finish.
+    Returns (light (3, N), alpha-drop count). Callers with several
+    queries in flight batch them with plan_lights / trace_plans /
+    finish_lights instead."""
+    plan = plan_lights(
+        sb, pixel_xy, bn_table, frame_count, ray_dir, position, normal,
+        specular, ctx, max_light_count, di_samples, noise_rand,
+    )
+    dev = position.device
+    dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    if check_shadows:
+        (factors,), dropped = trace_plans(
+            [plan], sb, tri_rows, trace_scene, shadow_k_alpha,
+            opaque_fn=opaque_fn,
+            alpha_compact=alpha_compact * max_light_count * plan.max_samples,
+            shade_boost=shade_boost,
+        )
+    else:
+        factors = torch.ones((plan.dirs.shape[1],), device=dev)
+    return finish_lights(plan, factors), dropped

@@ -4,13 +4,15 @@ The sky plane is the N64 skybox recreated from the decompilation's
 320x240-based math (BgSky.hlsli:8-11). On the regular primary-ray grid
 its texture coordinate is affine in screen position, so the frame
 samples it as a separable wrap-bilinear resample of the dense sky
-texture (SceneBuffers.sky_plane).
+texture (SceneBuffers.sky_plane). Bounce rays that miss the scene look
+it up by direction through the quad pool (sample_sky_plane).
 """
 
 from __future__ import annotations
 
 import torch
 
+from rt64tpu_torch.ops import texture as tex_ops
 from rt64tpu_torch.ops.colorspace import mod_rgb_with_hsl
 
 M_PI = 3.14159265
@@ -19,6 +21,43 @@ SCREEN_WIDTH = 320
 SCREEN_HEIGHT = 240
 SKYBOX_WIDTH = 4 * SCREEN_WIDTH
 SKYBOX_HEIGHT = 4 * SCREEN_HEIGHT
+
+
+def fake_env_map_uv(ray_dir, yaw_offset):
+    """FakeEnvMapUV (BgSky.hlsli:14-18). ray_dir: (3, N) -> (u, v)."""
+    yaw = torch.remainder(
+        yaw_offset + torch.atan2(ray_dir[0], -ray_dir[2]) + M_PI, M_TWO_PI
+    )
+    pitch = torch.remainder(
+        torch.atan2(-ray_dir[1],
+                    torch.sqrt(ray_dir[0] ** 2 + ray_dir[2] ** 2)) + M_PI,
+        M_TWO_PI,
+    )
+    return yaw / M_TWO_PI, pitch / M_TWO_PI
+
+
+def _sample_env_scalar_rec(pool, records, sky_rec, u, v):
+    """Bilinear wrap/wrap sample of ONE texture record for every lane:
+    sky_rec may be () or (N,), only lane 0 is used; a negative id gives
+    transparent black."""
+    rec = sky_rec.reshape(-1)[0].to(torch.int64)
+    row = records[torch.clamp(rec, min=0)]
+    n = u.shape
+    dev = u.device
+    wrap = torch.full(n, tex_ops.ADDR_WRAP, dtype=torch.int32, device=dev)
+    return tex_ops.sample_quad_cols(
+        pool, row[0], row[1], row[2], rec >= 0, u, v,
+        torch.ones(n, dtype=torch.bool, device=dev), wrap, wrap,
+    )
+
+
+def sample_sky_plane(pool, records, sky_rec, ray_dir, yaw_offset,
+                     sky_diffuse_multiplier, sky_hsl_modifier):
+    """SampleSkyPlane (BgSky.hlsli:72-84): the sky by ray direction,
+    (4, N)."""
+    u, v = fake_env_map_uv(ray_dir, yaw_offset)
+    color = _sample_env_scalar_rec(pool, records, sky_rec, u, v)
+    return _finish_sky(color, sky_diffuse_multiplier, sky_hsl_modifier)
 
 
 def _sky_base(view_i, viewport_wh, yaw_offset):

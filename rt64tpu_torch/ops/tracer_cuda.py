@@ -9,30 +9,48 @@ packet-granular:
   2. A two-level slab pre-pass (block_visit_lists, plain torch) reduces
      every 512-ray block to a front-to-back list of the clusters any of
      its rays might hit.
-  3. A kernel walks each block's list: K1 (closest opaque hit) and K2
-     (any-hit occlusion) in ``rt64tpu_torch/csrc/packet_tracer.cu``.
+  3. A kernel walks each block's list, in
+     ``rt64tpu_torch/csrc/packet_tracer.cu``: K1 (closest opaque hit)
+     and K2 (any-hit occlusion) over the 64-triangle Woop table, K3 and
+     K4 (the same two functions) over the 128-triangle
+     Moller-Trumbore table.
 
 Each kernel has a plain PyTorch twin that takes the same inputs and
-computes the same function (trace_opaque_plain, trace_shadow_plain).
-The wrappers choose by device only: a CPU tensor takes the plain twin,
-a CUDA tensor launches the kernel (built on first use with nvcc) or
-raises. Nothing falls back.
+computes the same function (trace_opaque_plain, trace_shadow_plain,
+trace_opaque_mt_plain, trace_shadow_mt_plain). The wrappers choose by
+device only: a CPU tensor takes the plain twin, a CUDA tensor launches
+the kernel (built on first use with nvcc) or raises. Nothing falls back.
 
-Tie rule (K1 and its twin): among hits, the smallest biased key
+Tie rule (K1, K3 and their twins): among hits, the smallest biased key
 (t - depth bias) wins; among equal keys, the largest triangle id. The
-JAX TPU kernel (tracer_pallas._kernel_vmem) gives the same result
-whenever the tied hits sit in different lanes of its 128-lane tile; for
-two exactly equal keys in the same lane (the same column j) of
-different visits it keeps the earlier visit (strict <,
-tracer_pallas.py:828). The plain reference tracer (ops/tracer.py
+rule does not depend on the order of the visits, so regrouped rays (see
+_regroup_order) get bit-identical results. The JAX TPU kernels differ
+on exactly equal keys only: K1's counterpart
+(tracer_pallas._kernel_vmem) gives the same result whenever the tied
+hits sit in different lanes of its 128-lane tile, and for two equal
+keys in the same lane (the same column j) of different visits it keeps
+the earlier visit (strict <, tracer_pallas.py:828); K3's counterpart
+(tracer_pallas._kernel) takes the largest id within one cluster and
+keeps the EARLIER visit across clusters (strict <,
+tracer_pallas.py:681). The plain reference tracer (ops/tracer.py
 trace_opaque) breaks ties per 512-triangle chunk instead (largest id
 within a chunk, earlier chunk across chunks).
 
-Cluster table: (nc + 1, 14, 64) f32, one SoA block per 64-triangle
-cluster, plain f32 (no hi/lo split: the kernels run on CUDA cores, not
-on a bf16-rounding matrix unit), with the all-zero pad cluster `nc`
-last. The JAX package switches large scenes (table above 4 MiB) to its
-HBM-streaming kernels; the CUDA kernels here serve every scene size.
+Cluster tables, both with the all-zero pad cluster `nc` last:
+  Woop, K1/K2: (nc + 1, 14, 64) f32, one SoA block per 64-triangle
+    cluster, plain f32 (no hi/lo split: the kernels run on CUDA cores,
+    not on a bf16-rounding matrix unit);
+  Moller-Trumbore, K3/K4: (nc + 1, 12, 128) f32, one SoA block per
+    128-triangle cluster: v0, e1, e2, depth bias, active, no_cull.
+
+The size switch (clusters_resident): the JAX package keeps its Woop
+table resident in on-chip memory while it fits RESIDENT_TABLE_BYTES
+(triangle buckets up to 26,880) and streams the 128-triangle table from
+device memory for larger scenes. The port changes tables at the same
+scene, so both packages trace a given scene through counterpart
+kernels. On the H100 this is a parity rule, not a memory wall: all four
+kernels read their table from device memory through the caches, and
+either pair can serve any scene size.
 """
 
 from __future__ import annotations
@@ -51,18 +69,38 @@ from rt64tpu_torch.ops import tracer
 
 _BIG = tracer._BIG
 
-K_CS = 64  # triangles per cluster
+K_CS = 64  # triangles per Woop cluster (K1/K2)
+CLUSTER_SIZE = 128  # triangles per Moller-Trumbore cluster (K3/K4)
 BLOCK_RAYS = 512  # rays per CTA and per visit list
-GROUP_CLUSTERS = 16  # clusters per level-1 group box
+# Clusters per level-1 group box at CLUSTER_SIZE; the K_CS path takes
+# twice as many, so its group boxes keep the same physical extent.
+GROUP_CLUSTERS = 8
 VISIT_UNROLL = 4  # K1 visits per early-out check (packet_tracer.cu)
 SHADOW_UNROLL = 8  # K2 visits per early-out check (packet_tracer.cu)
+# Columns of a kernel's optional work-count buffer (packet_tracer.cu):
+# visits walked, pairs tested, pairs past stages 1-4 of the pair test.
+STATS_COLS = 6
+# The size switch (see the module docstring): the byte size of the JAX
+# package's resident table, (T // 64) clusters of 13 x 192 f32, against
+# its budget.
+RESIDENT_TABLE_BYTES = 4 * 1024 * 1024
+_RESIDENT_CLUSTER_BYTES = 13 * 192 * 4
 
-# Cluster table rows (see packet_tracer.cu).
+# Woop cluster table rows (see packet_tracer.cu).
 C_W = 0  # 9: W[g][i] at row g*3+i
 C_TR = 9  # 3: -W v0
 C_THR = 12  # signed keep threshold
 C_BIAS = 13  # depth bias
 C_ROWS = 14
+
+# Moller-Trumbore cluster table rows (see packet_tracer.cu).
+M_V0 = 0  # 3
+M_E1 = 3  # 3
+M_E2 = 6  # 3
+M_BIAS = 9
+M_ACTIVE = 10  # 1.0 when valid opaque-class
+M_NO_CULL = 11
+M_ROWS = 12
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _SOURCE = os.path.join(_PKG_DIR, "csrc", "packet_tracer.cu")
@@ -74,12 +112,13 @@ class LaunchCounts:
     launches its kernel, and nowhere else."""
 
     def __init__(self):
-        self.opaque_launches = 0
-        self.shadow_launches = 0
+        self.reset()
 
     def reset(self):
-        self.opaque_launches = 0
-        self.shadow_launches = 0
+        self.opaque_launches = 0  # K1
+        self.shadow_launches = 0  # K2
+        self.opaque_mt_launches = 0  # K3
+        self.shadow_mt_launches = 0  # K4
 
 
 launch_counts = LaunchCounts()
@@ -89,19 +128,47 @@ launch_counts = LaunchCounts()
 # Cluster data (plain torch, every frame)
 # ---------------------------------------------------------------------------
 
-def build_cluster_boxes(scene: tracer.TraceScene):
-    """Per-cluster AABBs of the opaque-class triangles at K_CS-triangle
-    granularity: (lo (3, T//K_CS), hi (3, T//K_CS)); clusters without an
+def clusters_resident(num_triangles: int) -> bool:
+    """The size switch: True when a scene of this triangle bucket takes
+    the Woop table and K1/K2, False when it takes the Moller-Trumbore
+    table and K3/K4. The same predicate as the JAX package's
+    (tracer_pallas._clusters_fit_vmem on its (T // 64, 13, 192) table)."""
+    return ((num_triangles // K_CS) * _RESIDENT_CLUSTER_BYTES
+            <= RESIDENT_TABLE_BYTES)
+
+
+def build_cluster_boxes(scene: tracer.TraceScene, cs: int = K_CS):
+    """Per-cluster AABBs of the opaque-class triangles at `cs`-triangle
+    granularity: (lo (3, T//cs), hi (3, T//cs)); clusters without an
     opaque-class triangle get inverted (never-hit) boxes."""
     t_total = scene.num_triangles
-    assert t_total % K_CS == 0, (t_total, K_CS)
-    nc = t_total // K_CS
+    assert t_total % cs == 0, (t_total, cs)
+    nc = t_total // cs
     act = (scene.valid & ~scene.alpha)[None]
     lo = torch.minimum(torch.minimum(scene.v0, scene.v1), scene.v2)
     hi = torch.maximum(torch.maximum(scene.v0, scene.v1), scene.v2)
-    lo = torch.where(act, lo, _BIG).reshape(3, nc, K_CS).amin(dim=2)
-    hi = torch.where(act, hi, -_BIG).reshape(3, nc, K_CS).amax(dim=2)
+    lo = torch.where(act, lo, _BIG).reshape(3, nc, cs).amin(dim=2)
+    hi = torch.where(act, hi, -_BIG).reshape(3, nc, cs).amax(dim=2)
     return lo, hi
+
+
+def build_cluster_data(scene: tracer.TraceScene):
+    """Cluster-major Moller-Trumbore rows: (nc + 1, M_ROWS, CLUSTER_SIZE)
+    f32 (v0, e1, e2, depth bias, active, no_cull per triangle) with the
+    all-zero pad cluster last."""
+    t_total = scene.num_triangles
+    assert t_total % CLUSTER_SIZE == 0, (t_total, CLUSTER_SIZE)
+    nc = t_total // CLUSTER_SIZE
+    active = (scene.valid & ~scene.alpha).to(torch.float32)
+    rows = torch.cat([
+        scene.v0, scene.v1 - scene.v0, scene.v2 - scene.v0,
+        scene.bias[None], active[None],
+        scene.no_cull.to(torch.float32)[None],
+    ], dim=0)  # (M_ROWS, T)
+    tris = rows.reshape(M_ROWS, nc, CLUSTER_SIZE).permute(1, 0, 2)
+    pad = torch.zeros((1, M_ROWS, CLUSTER_SIZE), dtype=tris.dtype,
+                      device=tris.device)
+    return torch.cat([tris, pad], dim=0).contiguous()
 
 
 def build_cluster_mats(scene: tracer.TraceScene):
@@ -166,11 +233,11 @@ def _slab_per_ray_live(origins, dirs, t_min, t_max, lo, hi):
 
 
 def block_visit_lists(origins, dirs, t_min, t_max, aabb_lo, aabb_hi,
-                      bias_max=0.0):
+                      bias_max=0.0, group_clusters: int = GROUP_CLUSTERS):
     """Per-ray-block compacted cluster visit lists — the two-level cull
     (the BLAS/TLAS traversal-cull analog of the driver BVH).
 
-    Level 1: every ray slab-tests the group boxes (GROUP_CLUSTERS
+    Level 1: every ray slab-tests the group boxes (`group_clusters`
     Morton-adjacent clusters each). Level 2: each block's interval
     bounds (origin box, direction box, t range over its live rays)
     slab-test every cluster. A cluster is visited iff both pass; both
@@ -192,7 +259,7 @@ def block_visit_lists(origins, dirs, t_min, t_max, aabb_lo, aabb_hi,
     n_blocks = n // BLOCK_RAYS
 
     # Pad clusters to a group multiple with inverted (never-hit) boxes.
-    g = GROUP_CLUSTERS
+    g = group_clusters
     pad = (-nc) % g
     lo_p = torch.cat([aabb_lo, torch.full((3, pad), _BIG, device=dev)], dim=1)
     hi_p = torch.cat([aabb_hi, torch.full((3, pad), -_BIG, device=dev)], dim=1)
@@ -296,15 +363,21 @@ def kernel_library() -> KernelLibrary:
     lib.rt64_trace_opaque.restype = ctypes.c_int
     lib.rt64_trace_shadow.argtypes = [p, i, p, i, p, p, p, i, p, p, p]
     lib.rt64_trace_shadow.restype = ctypes.c_int
+    lib.rt64_trace_opaque_mt.argtypes = lib.rt64_trace_opaque.argtypes
+    lib.rt64_trace_opaque_mt.restype = ctypes.c_int
+    lib.rt64_trace_shadow_mt.argtypes = lib.rt64_trace_shadow.argtypes
+    lib.rt64_trace_shadow_mt.restype = ctypes.c_int
     return KernelLibrary(lib, path, seconds, log)
 
 
-def _check_inputs(rays8, clusters, visits, counts, entries):
-    """Validate the kernels' inputs; returns (n_blocks, n_cols)."""
+def _check_inputs(rays8, clusters, visits, counts, entries,
+                  table=(C_ROWS, K_CS)):
+    """Validate the kernels' inputs (`table`: rows and triangles of one
+    cluster); returns (n_blocks, n_cols)."""
     n_blocks = counts.shape[0]
     checks = [
         (rays8, torch.float32, (8, n_blocks * BLOCK_RAYS), "rays8"),
-        (clusters, torch.float32, (clusters.shape[0], C_ROWS, K_CS), "clusters"),
+        (clusters, torch.float32, (clusters.shape[0],) + table, "clusters"),
         (visits, torch.int32, (n_blocks, visits.shape[1]), "visits"),
         (counts, torch.int32, (n_blocks,), "counts"),
         (entries, torch.float32, (n_blocks, visits.shape[1]), "entries"),
@@ -325,14 +398,15 @@ def _check_inputs(rays8, clusters, visits, counts, entries):
 
 
 def _stats_ptr(stats, n_blocks, dev):
-    """Zero a kernel's optional (n_blocks, 3) int64 work-count buffer and
-    return its pointer (None when absent)."""
+    """Zero a kernel's optional (n_blocks, STATS_COLS) int64 work-count
+    buffer and return its pointer (None when absent)."""
     if stats is None:
         return None
-    if (stats.dtype != torch.int64 or tuple(stats.shape) != (n_blocks, 3)
+    if (stats.dtype != torch.int64
+            or tuple(stats.shape) != (n_blocks, STATS_COLS)
             or stats.device != dev or not stats.is_contiguous()):
-        raise ValueError("stats must be a contiguous (n_blocks, 3) int64 "
-                         "tensor on the rays' device")
+        raise ValueError(f"stats must be a contiguous (n_blocks, {STATS_COLS}) "
+                         "int64 tensor on the rays' device")
     stats.zero_()
     return stats.data_ptr()
 
@@ -353,16 +427,27 @@ def trace_opaque_blocks(rays8, clusters, visits, counts, entries,
     rays8 (8, B*512) f32; clusters (nc+1, 14, 64) f32; visits (B, nc)
     int32; counts (B,) int32; entries (B, nc) f32. Returns (t biased
     key, tri int32 (-1 miss), u, v, bias), each (B*512,); a miss reports
-    t = t_max + 1. stats: optional (B, 3) int64 tensor on the card that
-    receives, per block, the visits walked, the (ray, triangle) pairs
-    tested and those that passed the keep test (kernel only; it selects
-    the counting instantiation of K1).
+    t = t_max + 1. stats: optional (B, STATS_COLS) int64 tensor on the
+    card that receives, per block, the visits walked, the (ray, triangle)
+    pairs tested and those that passed each early return of the pair
+    test in turn: the keep test, t in range, u, and v with u + v (kernel
+    only; it selects the counting instantiation of K1).
 
     CPU tensors take trace_opaque_plain; CUDA tensors launch K1."""
     n_blocks, n_cols = _check_inputs(rays8, clusters, visits, counts, entries)
     if rays8.device.type == "cpu":
         return trace_opaque_plain(rays8, clusters, visits, counts, entries,
                                   cull_backface)
+    out = _launch_opaque("rt64_trace_opaque", "trace_opaque_kernel", rays8,
+                         clusters, visits, counts, entries, n_blocks, n_cols,
+                         cull_backface, stats)
+    launch_counts.opaque_launches += 1
+    return out
+
+
+def _launch_opaque(entry, name, rays8, clusters, visits, counts, entries,
+                   n_blocks, n_cols, cull_backface, stats):
+    """Launch a closest-hit kernel (K1 or K3) on the current stream."""
     if rays8.device.type != "cuda":
         raise ValueError(f"unsupported device {rays8.device}")
     lib = kernel_library().lib
@@ -375,14 +460,13 @@ def trace_opaque_blocks(rays8, clusters, visits, counts, entries,
     bias = torch.empty(n, dtype=torch.float32, device=dev)
     stats_ptr = _stats_ptr(stats, n_blocks, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.rt64_trace_opaque(
+    err = getattr(lib, entry)(
         rays8.data_ptr(), n_blocks, clusters.data_ptr(), clusters.shape[0],
         visits.data_ptr(), counts.data_ptr(), entries.data_ptr(), n_cols,
         int(bool(cull_backface)), t.data_ptr(), tri.data_ptr(),
         u.data_ptr(), v.data_ptr(), bias.data_ptr(), stats_ptr, stream,
     )
-    _raise_on(err, "trace_opaque_kernel")
-    launch_counts.opaque_launches += 1
+    _raise_on(err, name)
     return t, tri, u, v, bias
 
 
@@ -393,7 +477,7 @@ def _block_rays(rays8, n_blocks):
 
 def _visit_cluster(clusters, visits, counts, i):
     """Cluster ids of visit slot i per block (the pad cluster past the
-    block's count) and their (B, 1, 14, 64) transforms."""
+    block's count) and their (B, 1, rows, triangles) table blocks."""
     pad = clusters.shape[0] - 1
     cid = torch.where(i < counts, visits[:, i], pad).to(torch.int64)
     cid = torch.clamp(cid, 0, pad)
@@ -476,10 +560,21 @@ def trace_shadow_blocks(rays8, clusters, visits, counts, entries,
     """Occlusion per ray over per-block visit lists (never culls).
     Returns (B*512,) int32 blocked flags. CPU tensors take
     trace_shadow_plain; CUDA tensors launch K2. stats: as for
-    trace_opaque_blocks."""
+    trace_opaque_blocks, with the stages of K2's test: the keep test,
+    t in range, and u with v and u + v (the last column stays 0)."""
     n_blocks, n_cols = _check_inputs(rays8, clusters, visits, counts, entries)
     if rays8.device.type == "cpu":
         return trace_shadow_plain(rays8, clusters, visits, counts, entries)
+    blocked = _launch_shadow("rt64_trace_shadow", "trace_shadow_kernel", rays8,
+                             clusters, visits, counts, entries, n_blocks,
+                             n_cols, stats)
+    launch_counts.shadow_launches += 1
+    return blocked
+
+
+def _launch_shadow(entry, name, rays8, clusters, visits, counts, entries,
+                   n_blocks, n_cols, stats):
+    """Launch an occlusion kernel (K2 or K4) on the current stream."""
     if rays8.device.type != "cuda":
         raise ValueError(f"unsupported device {rays8.device}")
     lib = kernel_library().lib
@@ -487,13 +582,12 @@ def trace_shadow_blocks(rays8, clusters, visits, counts, entries,
     blocked = torch.empty(n_blocks * BLOCK_RAYS, dtype=torch.int32, device=dev)
     stats_ptr = _stats_ptr(stats, n_blocks, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.rt64_trace_shadow(
+    err = getattr(lib, entry)(
         rays8.data_ptr(), n_blocks, clusters.data_ptr(), clusters.shape[0],
         visits.data_ptr(), counts.data_ptr(), entries.data_ptr(), n_cols,
         blocked.data_ptr(), stats_ptr, stream,
     )
-    _raise_on(err, "trace_shadow_kernel")
-    launch_counts.shadow_launches += 1
+    _raise_on(err, name)
     return blocked
 
 
@@ -520,6 +614,219 @@ def trace_shadow_plain(rays8, clusters, visits, counts, entries):
 
 
 # ---------------------------------------------------------------------------
+# K3 / K4: the same two functions over the 128-triangle MT table
+# ---------------------------------------------------------------------------
+
+# (ray, triangle) pairs per tile of the MT twins: bounds their
+# temporaries to a few hundred MB whatever the launch size.
+_TWIN_TILE_PAIRS = 1 << 25
+_MT_TABLE = (M_ROWS, CLUSTER_SIZE)
+
+
+def trace_opaque_mt_blocks(rays8, clusters, visits, counts, entries,
+                           cull_backface: bool, stats=None):
+    """Closest opaque hit per ray over per-block visit lists of
+    128-triangle Moller-Trumbore clusters.
+
+    rays8 (8, B*512) f32; clusters (nc+1, 12, 128) f32; visits (B, nc)
+    int32; counts (B,) int32; entries (B, nc) f32. Returns (t biased
+    key, tri int32 (-1 miss), u, v, bias), each (B*512,); a miss reports
+    t = t_max + 1. stats: as for trace_opaque_blocks, with the pairs
+    counted over active triangles (tested) and the stages of the
+    Moller-Trumbore test: the determinant, u, v with u + v, t in range.
+
+    CPU tensors take trace_opaque_mt_plain; CUDA tensors launch K3."""
+    n_blocks, n_cols = _check_inputs(rays8, clusters, visits, counts, entries,
+                                     _MT_TABLE)
+    if rays8.device.type == "cpu":
+        return trace_opaque_mt_plain(rays8, clusters, visits, counts, entries,
+                                     cull_backface)
+    out = _launch_opaque("rt64_trace_opaque_mt", "trace_opaque_mt_kernel",
+                         rays8, clusters, visits, counts, entries, n_blocks,
+                         n_cols, cull_backface, stats)
+    launch_counts.opaque_mt_launches += 1
+    return out
+
+
+def trace_shadow_mt_blocks(rays8, clusters, visits, counts, entries,
+                           stats=None):
+    """Occlusion per ray over per-block visit lists of 128-triangle
+    Moller-Trumbore clusters (never culls). Returns (B*512,) int32
+    blocked flags. CPU tensors take trace_shadow_mt_plain; CUDA tensors
+    launch K4. stats: as for trace_opaque_mt_blocks."""
+    n_blocks, n_cols = _check_inputs(rays8, clusters, visits, counts, entries,
+                                     _MT_TABLE)
+    if rays8.device.type == "cpu":
+        return trace_shadow_mt_plain(rays8, clusters, visits, counts, entries)
+    blocked = _launch_shadow("rt64_trace_shadow_mt", "trace_shadow_mt_kernel",
+                             rays8, clusters, visits, counts, entries,
+                             n_blocks, n_cols, stats)
+    launch_counts.shadow_mt_launches += 1
+    return blocked
+
+
+def _mt_tiles(rays8, counts):
+    """Split a launch into runs of blocks of at most _TWIN_TILE_PAIRS
+    pairs per visit: yields (b0, b1, rays8 of those blocks)."""
+    n_blocks = counts.shape[0]
+    step = max(1, _TWIN_TILE_PAIRS // (BLOCK_RAYS * CLUSTER_SIZE))
+    blocks = rays8.reshape(8, n_blocks, BLOCK_RAYS)
+    for b0 in range(0, n_blocks, step):
+        b1 = min(b0 + step, n_blocks)
+        yield b0, b1, blocks[:, b0:b1].reshape(8, -1)
+
+
+def _mt_hit(m, o, d, tmin, tmax, cull_backface: bool):
+    """Moller-Trumbore of (B, 1, 12, 128) clusters against
+    (3, B, 512, 1) rays, in the operation order of the JAX kernel:
+    (hit, t, u, v), each (B, 512, 128)."""
+    row = lambda r: m[:, :, r]
+    v0x, v0y, v0z = row(M_V0), row(M_V0 + 1), row(M_V0 + 2)
+    e1x, e1y, e1z = row(M_E1), row(M_E1 + 1), row(M_E1 + 2)
+    e2x, e2y, e2z = row(M_E2), row(M_E2 + 1), row(M_E2 + 2)
+    ox, oy, oz = o[0], o[1], o[2]
+    dx, dy, dz = d[0], d[1], d[2]
+    px = dy * e2z - dz * e2y
+    py = dz * e2x - dx * e2z
+    pz = dx * e2y - dy * e2x
+    det = e1x * px + e1y * py + e1z * pz
+    if cull_backface:
+        keep = (det > 1e-9) | ((row(M_NO_CULL) > 0.0) & (det < -1e-9))
+    else:
+        keep = torch.abs(det) > 1e-9
+    inv_det = 1.0 / torch.where(keep, det, 1.0)
+    tx = ox - v0x
+    ty = oy - v0y
+    tz = oz - v0z
+    u = (tx * px + ty * py + tz * pz) * inv_det
+    qx = ty * e1z - tz * e1y
+    qy = tz * e1x - tx * e1z
+    qz = tx * e1y - ty * e1x
+    v = (dx * qx + dy * qy + dz * qz) * inv_det
+    t = (e2x * qx + e2y * qy + e2z * qz) * inv_det
+    hit = (keep & (u >= 0.0) & (v >= 0.0) & (u + v <= 1.0)
+           & (t >= tmin) & (t <= tmax) & (row(M_ACTIVE) > 0.0))
+    return hit, t, u, v
+
+
+def trace_opaque_mt_plain(rays8, clusters, visits, counts, entries,
+                          cull_backface: bool):
+    """K3's plain twin: the same function over (blocks, 512, 128) tiles,
+    one visit slot at a time, without the early-out (which never changes
+    the result). Same tie rule as the kernel; a ray's carry starts at
+    t_max + 1 with no triangle, and only a strictly smaller key takes
+    it from there."""
+    dev = rays8.device
+    col = torch.arange(CLUSTER_SIZE, device=dev)
+    outs = []
+    for b0, b1, rays in _mt_tiles(rays8, counts):
+        cnt, vis = counts[b0:b1], visits[b0:b1]
+        o, d, tmin, tmax = _block_rays(rays, b1 - b0)
+        best = tmax[..., 0] + 1.0
+        best_tid = torch.full_like(best, -1, dtype=torch.int64)
+        best_u = torch.zeros_like(best)
+        best_v = torch.zeros_like(best)
+        best_b = torch.zeros_like(best)
+        for i in range(int(cnt.max())):
+            cid, m = _visit_cluster(clusters, vis, cnt, i)
+            hit, t, u, v = _mt_hit(m, o, d, tmin, tmax, cull_backface)
+            bias = m[:, :, M_BIAS]
+            key = torch.where(hit, t - bias, _BIG)
+            tid = (cid[:, None, None] * CLUSTER_SIZE + col).expand_as(key)
+            # This visit's winner per ray: smallest key, then largest id.
+            k_min = key.amin(dim=2)
+            k_tid = torch.where(key <= k_min[..., None], tid, -1).amax(dim=2)
+            at = tid == k_tid[..., None]
+            pick = lambda a: torch.where(at, a, 0.0).sum(dim=2)
+            take = (k_min < _BIG * 0.5) & (
+                (k_min < best)
+                | ((k_min == best) & (best_tid >= 0) & (k_tid > best_tid))
+            )
+            best = torch.where(take, k_min, best)
+            best_tid = torch.where(take, k_tid, best_tid)
+            best_u = torch.where(take, pick(u), best_u)
+            best_v = torch.where(take, pick(v), best_v)
+            best_b = torch.where(
+                take, pick(torch.broadcast_to(bias, key.shape)), best_b)
+        outs.append((best, best_tid.to(torch.int32), best_u, best_v, best_b))
+    return tuple(torch.cat([o[k].reshape(-1) for o in outs])
+                 for k in range(5))
+
+
+def trace_shadow_mt_plain(rays8, clusters, visits, counts, entries):
+    """K4's plain twin: Moller-Trumbore occlusion over (blocks, 512, 128)
+    tiles, one visit slot at a time, without the early-outs."""
+    outs = []
+    for b0, b1, rays in _mt_tiles(rays8, counts):
+        cnt, vis = counts[b0:b1], visits[b0:b1]
+        o, d, tmin, tmax = _block_rays(rays, b1 - b0)
+        blocked = torch.zeros_like(tmax[..., 0], dtype=torch.bool)
+        for i in range(int(cnt.max())):
+            _, m = _visit_cluster(clusters, vis, cnt, i)
+            hit, _, _, _ = _mt_hit(m, o, d, tmin, tmax, False)
+            blocked = blocked | hit.any(dim=2)
+        outs.append(blocked.reshape(-1))
+    return torch.cat(outs).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Regrouping incoherent rays into coherent blocks
+# ---------------------------------------------------------------------------
+
+def _regroup_order(origins, dirs, t_min, t_max, mode: str):
+    """Ray order that packs coherent rays into the same 512-ray blocks:
+    (order, inverse), both (N,) int64.
+
+    Incoherent populations defeat the per-block cluster cull. mode
+    "dir": direction octant + 4x4 dominant-axis cell (hemisphere bounce
+    rays: scattered directions, coherent origins). mode "origin": origin
+    cell in the live rays' box + direction octant (bounce-point shadow
+    rays: scattered origins). Dead rays (empty interval) sort last, so
+    live blocks stay dense and dead blocks visit nothing. The sort is
+    stable, so the order is repeatable. Results are bit-identical either
+    way: every kernel decision below block granularity is per ray, and
+    the tie rule does not depend on the visit order."""
+    live = t_max >= t_min
+    oct_ = ((dirs[0] >= 0).to(torch.int32)
+            + 2 * (dirs[1] >= 0).to(torch.int32)
+            + 4 * (dirs[2] >= 0).to(torch.int32))
+    if mode == "dir":
+        dom = torch.clamp(torch.abs(dirs).amax(dim=0), min=1e-6)
+        u = torch.clamp((dirs[0] / dom * 0.5 + 0.5) * 4.0, 0.0, 3.0)
+        v = torch.clamp((dirs[1] / dom * 0.5 + 0.5) * 4.0, 0.0, 3.0)
+        key = oct_ * 16 + u.to(torch.int32) * 4 + v.to(torch.int32)
+    else:
+        assert mode == "origin", mode
+        lo = torch.where(live[None], origins, _BIG).amin(dim=1)
+        hi = torch.where(live[None], origins, -_BIG).amax(dim=1)
+        span = torch.clamp(hi - lo, min=1e-6)
+        q = torch.clamp(
+            (origins - lo[:, None]) / span[:, None] * 8.0, 0.0, 7.0
+        ).to(torch.int32)
+        key = ((q[0] * 8 + q[1]) * 8 + q[2]) * 8 + oct_
+    key = torch.where(live, key, 1 << 20)
+    order = torch.argsort(key, stable=True)
+    inv = torch.empty_like(order)
+    inv[order] = torch.arange(order.shape[0], device=order.device)
+    return order, inv
+
+
+def _regrouped(base_fn, mode: str):
+    """Wrap an opaque_fn: permute rays into coherent blocks, trace,
+    inverse-permute the results."""
+
+    def fn(origins, dirs, t_min, t_max, scene, cull_backface=True, chunk=0):
+        order, inv = _regroup_order(origins, dirs, t_min, t_max, mode)
+        t, tri, uv, bias = base_fn(
+            origins[:, order], dirs[:, order], t_min[order], t_max[order],
+            scene, cull_backface, chunk,
+        )
+        return t[inv], tri[inv], uv[inv], bias[inv]
+
+    return fn
+
+
+# ---------------------------------------------------------------------------
 # opaque_fn hooks for ops/tracer.py
 # ---------------------------------------------------------------------------
 
@@ -532,6 +839,7 @@ class PacketInputs(NamedTuple):
     counts: torch.Tensor
     entries: torch.Tensor
     n: int  # real rays (the rest of rays8 is padding)
+    mt: bool  # the 128-triangle MT table (K3/K4), else the Woop table
 
 
 def _pad_to_blocks(origins, dirs, t_min, t_max):
@@ -549,14 +857,38 @@ def _pad_to_blocks(origins, dirs, t_min, t_max):
             torch.cat([t_max, z(t_max) - 1.0]))
 
 
+def _switch_boxes(scene):
+    """Ask the size switch and build the cluster boxes at its
+    granularity: (resident, lo, hi)."""
+    resident = clusters_resident(scene.num_triangles)
+    lo, hi = build_cluster_boxes(scene, K_CS if resident else CLUSTER_SIZE)
+    return resident, lo, hi
+
+
+def _packet_inputs(origins_p, dirs_p, t_min_p, t_max_p, scene, n, resident,
+                   lo, hi, bias_max=0.0) -> PacketInputs:
+    """Cluster table and visit lists of one launch of padded rays."""
+    rays8 = torch.cat(
+        [origins_p, dirs_p, t_min_p[None], t_max_p[None]], dim=0
+    ).contiguous()
+    visits, counts, entries = block_visit_lists(
+        origins_p, dirs_p, t_min_p, t_max_p, lo, hi, bias_max=bias_max,
+        group_clusters=2 * GROUP_CLUSTERS if resident else GROUP_CLUSTERS,
+    )
+    table = build_cluster_mats(scene) if resident else build_cluster_data(scene)
+    return PacketInputs(rays8, table, visits, counts, entries, n,
+                        not resident)
+
+
 def prepare_opaque(origins, dirs, t_min, t_max, scene) -> PacketInputs:
-    """Host-side prep of a K1 launch: pad, clamp t_max at the scene-box
-    exit, build the cluster table and the visit lists."""
+    """Host-side prep of a K1 or K3 launch (by the size switch): pad,
+    clamp t_max at the scene-box exit, build the cluster table and the
+    visit lists."""
     n = origins.shape[1]
     origins_p, dirs_p, t_min_p, t_max_p = _pad_to_blocks(
         origins, dirs, t_min, t_max
     )
-    lo, hi = build_cluster_boxes(scene)
+    resident, lo, hi = _switch_boxes(scene)
     # Clamp each ray's t_max to its scene-box exit: rays that leave the
     # geometry stop gating the packet early-out, and rays that miss the
     # scene visit nothing. Misses are tri == -1, so results never change.
@@ -577,44 +909,35 @@ def prepare_opaque(origins, dirs, t_min, t_max, scene) -> PacketInputs:
     t_max_k = torch.where(in_box, torch.minimum(t_max_p, g_hi), t_min_p - 1.0)
 
     bias_max = torch.where(scene.valid & ~scene.alpha, scene.bias, 0.0).amax()
-    rays8 = torch.cat(
-        [origins_p, dirs_p, t_min_p[None], t_max_k[None]], dim=0
-    ).contiguous()
-    visits, counts, entries = block_visit_lists(
-        origins_p, dirs_p, t_min_p, t_max_k, lo, hi, bias_max=bias_max,
-    )
-    return PacketInputs(rays8, build_cluster_mats(scene), visits, counts,
-                        entries, n)
+    return _packet_inputs(origins_p, dirs_p, t_min_p, t_max_k, scene, n,
+                          resident, lo, hi, bias_max=bias_max)
 
 
 def prepare_shadow(origins, dirs, t_min, t_max, scene) -> PacketInputs:
-    """Host-side prep of a K2 launch: pad, build the cluster table and
-    the visit lists (shadow rays keep their own t_max)."""
+    """Host-side prep of a K2 or K4 launch (by the size switch): pad,
+    build the cluster table and the visit lists (shadow rays keep their
+    own t_max)."""
     n = origins.shape[1]
     origins_p, dirs_p, t_min_p, t_max_p = _pad_to_blocks(
         origins, dirs, t_min, t_max
     )
-    lo, hi = build_cluster_boxes(scene)
-    rays8 = torch.cat(
-        [origins_p, dirs_p, t_min_p[None], t_max_p[None]], dim=0
-    ).contiguous()
-    visits, counts, entries = block_visit_lists(
-        origins_p, dirs_p, t_min_p, t_max_p, lo, hi,
-    )
-    return PacketInputs(rays8, build_cluster_mats(scene), visits, counts,
-                        entries, n)
+    resident, lo, hi = _switch_boxes(scene)
+    return _packet_inputs(origins_p, dirs_p, t_min_p, t_max_p, scene, n,
+                          resident, lo, hi)
 
 
-def make_opaque_fn():
-    """opaque_fn for tracer.trace / trace_opaque_only: K1 behind the
-    packet prep. Returns (t biased (BIG on a miss), tri, uv (N, 2),
-    bias)."""
+def make_opaque_fn(regroup=None):
+    """opaque_fn for tracer.trace / trace_opaque_only: K1 or K3 (by the
+    size switch) behind the packet prep. Returns (t biased (BIG on a
+    miss), tri, uv (N, 2), bias). regroup ("dir" / "origin" / None):
+    sort incoherent rays into coherent blocks first (_regroup_order)."""
 
     def opaque_fn(origins, dirs, t_min, t_max, scene, cull_backface=True,
                   chunk=0):
         del chunk
         p = prepare_opaque(origins, dirs, t_min, t_max, scene)
-        t, tri, u, v, bias = trace_opaque_blocks(
+        blocks = trace_opaque_mt_blocks if p.mt else trace_opaque_blocks
+        t, tri, u, v, bias = blocks(
             p.rays8, p.clusters, p.visits, p.counts, p.entries, cull_backface,
         )
         n = p.n
@@ -622,19 +945,21 @@ def make_opaque_fn():
         t = torch.where(tri >= 0, t[:n], _BIG)
         return t, tri, torch.stack([u[:n], v[:n]], dim=-1), bias[:n]
 
-    return opaque_fn
+    return _regrouped(opaque_fn, regroup) if regroup else opaque_fn
 
 
-def make_shadow_opaque_fn():
-    """opaque_fn for shadow traces: K2 behind the packet prep, in
-    trace_opaque's shape contract: tri = 0 when blocked (-1 otherwise),
-    t = 0/BIG, uv and bias 0."""
+def make_shadow_opaque_fn(regroup=None):
+    """opaque_fn for shadow traces: K2 or K4 (by the size switch) behind
+    the packet prep, in trace_opaque's shape contract: tri = 0 when
+    blocked (-1 otherwise), t = 0/BIG, uv and bias 0. regroup: as for
+    make_opaque_fn."""
 
     def opaque_fn(origins, dirs, t_min, t_max, scene, cull_backface=False,
                   chunk=0):
         del chunk, cull_backface  # shadows never cull
         p = prepare_shadow(origins, dirs, t_min, t_max, scene)
-        blocked = trace_shadow_blocks(
+        blocks = trace_shadow_mt_blocks if p.mt else trace_shadow_blocks
+        blocked = blocks(
             p.rays8, p.clusters, p.visits, p.counts, p.entries,
         )[: p.n] > 0
         n = p.n
@@ -644,4 +969,4 @@ def make_shadow_opaque_fn():
         return (t, tri, torch.zeros((n, 2), device=dev),
                 torch.zeros((n,), device=dev))
 
-    return opaque_fn
+    return _regrouped(opaque_fn, regroup) if regroup else opaque_fn

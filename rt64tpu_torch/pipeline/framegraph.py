@@ -5,15 +5,16 @@ functions over device-resident planes:
 
     build tri rows (TLAS/BLAS refit analog)
     -> primary (trace + shade + alpha resolve) -> batched shadow launch
-    -> direct -> indirect (ambient) -> compose
+    -> direct -> indirect (1-bounce GI, reprojected history)
+    -> GI denoise filter -> compose
 
 All per-pixel data is planar ((C, N) / (C, H, W)) in the tile-swizzled
 pixel order, so each 512-ray block is an 8x64 screen tile. Raygen math
 mirrors the HLSL raygen shaders (citations inline).
 
-This is the main path: GI, reflections, refraction, the denoiser, the
-upscalers, motion blur, the raster layers and the debug views raise
-NotImplementedError naming the ROADMAP item that brings them.
+Reflections, refraction, the upscalers, motion blur, the raster layers
+and the debug views raise NotImplementedError naming the ROADMAP item
+that brings them.
 """
 
 from __future__ import annotations
@@ -50,9 +51,11 @@ class RenderConfig:
     max_lights: int = 12
     max_reflections: int = 2  # rt64_view.cpp:60
     k_primary: int = 4  # alpha hit slots (<= MAX_HIT_QUERIES 16)
+    k_secondary: int = 2
     k_shadow: int = 1
     motion_blur_enabled: bool = True
     denoiser_enabled: bool = False
+    gi_filter_passes: int = 5  # rt64_view.cpp:1512-1530
     upscaler: int = 0
     alpha_cap: int = 256  # compacted alpha triangle list capacity
     refraction_enabled: bool = True
@@ -164,8 +167,6 @@ def check_slice(sb: SceneBuffers, cfg: RenderConfig,
     """Raise for every feature the port does not render yet, naming the
     ROADMAP queue-1 item that brings it. Nothing is skipped silently."""
     todo = [
-        (cfg.gi_samples > 0, "GI (gi_samples > 0)", 9),
-        (cfg.denoiser_enabled, "the GI denoiser", 9),
         (cfg.max_reflections > 0,
          "reflections (max_reflections > 0 with reflective materials)", 10),
         (cfg.refraction_enabled, "refraction materials", 10),
@@ -232,6 +233,19 @@ def _from_image_1(cfg, img_hw):
     )
 
 
+def from_image(cfg, img):
+    """(C, H, W) -> (C, N) in the frame's pixel order."""
+    c, h, w = img.shape
+    if not cfg.tiled:
+        return img.reshape(c, -1)
+    th, tw = cfg.TILE_H, cfg.TILE_W
+    return (
+        img.reshape(c, h // th, th, w // tw, tw)
+        .permute(0, 1, 3, 2, 4)
+        .reshape(c, -1)
+    )
+
+
 def to_image(cfg, plane):
     """(C, N) -> (C, H, W) undoing the frame's pixel order."""
     h, w = cfg.rt_height, cfg.rt_width
@@ -249,6 +263,18 @@ def to_image(cfg, plane):
             .reshape(c, h, w)
         )
     return out[0] if squeeze else out
+
+
+def flat_index(cfg, x, y):
+    """Flat pixel index of integer coords (x, y) in the frame's order
+    (the y*W+x analog; used by reprojection gathers)."""
+    w = cfg.rt_width
+    if not cfg.tiled:
+        return y * w + x
+    th, tw = cfg.TILE_H, cfg.TILE_W
+    block = (y // th) * (w // tw) + x // tw
+    within = (y % th) * tw + (x % tw)
+    return block * (th * tw) + within
 
 
 def primary_rays(cfg: RenderConfig, gp: GlobalParams):
@@ -356,6 +382,7 @@ def _scatter_carry(full, comp, mask):
 def _fold_shaded_slots(
     sb, tri_rows, trace_scene, origins, dirs, t_min, t_max, k_alpha,
     noise_rand, cfg, make_carry, slot_fn, cull_backface=True, aux=(),
+    regroup=None,
 ):
     """Trace, then fold slot_fn front-to-back over the K+1 ordered hit
     slots (alpha..., opaque last).
@@ -367,10 +394,15 @@ def _fold_shaded_slots(
     cull + compaction per pass, tracer.trace_alpha_to_compact) and the
     folded carry merges back to full width once.
 
+    regroup ("dir" / "origin" / None) sorts an incoherent ray population
+    into coherent packet blocks before the opaque trace
+    (tracer_cuda._regroup_order).
+
     Returns (carry, dropped): dropped counts candidate alpha rays beyond
     the compaction capacity, so the view can grow the capacity.
     """
     n = dirs.shape[1]
+    opaque_fn = tracer_cuda.make_opaque_fn(regroup=regroup)
     # Candidate rays after the opaque-clamped alpha cull are a few
     # percent of a frame; n/16 leaves headroom and the boost ladder
     # (view.py) grows it on overflow.
@@ -379,7 +411,7 @@ def _fold_shaded_slots(
         t_op, tri_op, uv_op, t_opb = tracer.trace_opaque_only(
             origins, dirs, t_min, t_max, trace_scene,
             cull_backface=cull_backface,
-            opaque_fn=tracer_cuda.make_opaque_fn(),
+            opaque_fn=opaque_fn,
         )
         ac = tracer.trace_alpha_to_compact(
             origins, dirs, t_min, t_max, trace_scene, k_alpha,
@@ -405,7 +437,7 @@ def _fold_shaded_slots(
     hits = tracer.trace(
         origins, dirs, t_min, t_max, trace_scene,
         k_alpha=0, cull_backface=cull_backface,
-        opaque_fn=tracer_cuda.make_opaque_fn(),
+        opaque_fn=opaque_fn,
     )
     sh = shade_ops.shade_hits(
         sb, tri_rows, dirs, hits.tri_op, hits.uv_op[:, 0],
@@ -664,17 +696,183 @@ def direct_pass(cfg, gp, g: GBuffers, ctx, direct_light):
     return torch.where(no_hit[None], miss, out)
 
 
-def indirect_pass(cfg, gp, g: GBuffers):
-    """IndirectRayGen.hlsl:31-137 with gi_samples <= 0: the ambient
-    term only (GI itself is ROADMAP queue 1 item 9)."""
+def _reproject(prev_buf, prev_depth, prev_normal, depth, normal, flow, cfg):
+    """Temporal reprojection (DirectRayGen.hlsl:35-48): the previous
+    frame's accumulation at the pixel the flow points back to, weighted
+    by depth and normal agreement. Returns (rgb (3, N), history length
+    (N,))."""
+    h, w = cfg.rt_height, cfg.rt_width
+    pix = _pixel_grid(cfg, depth.device).to(torch.float32)
+    px = torch.floor(pix[:, 0] + 0.5 + flow[0]).to(torch.int32)
+    py = torch.floor(pix[:, 1] + 0.5 + flow[1]).to(torch.int32)
+    inb = (px >= 0) & (px < w) & (py >= 0) & (py < h)
+    flat = flat_index(
+        cfg, torch.clamp(px, 0, w - 1), torch.clamp(py, 0, h - 1)
+    ).to(torch.int64)
+    hist_planes = torch.cat([prev_depth[None], prev_normal, prev_buf], 0)
+    got = torch.where(inb[None], hist_planes[:, flat], 0.0)
+    p_depth = got[0]
+    p_normal = got[1:4]
+    p_accum = got[4:]
+    weight_depth = torch.abs(depth - p_depth) / 0.01
+    weight_normal = torch.pow(
+        torch.clamp(vm.dot(p_normal, normal), min=0.0), 128.0
+    )
+    history_weight = torch.exp(-weight_depth) * weight_normal
+    return p_accum[:3], p_accum[3] * history_weight
+
+
+def _simple_resolve_fold(
+    sb, tri_rows, trace_scene, origins, dirs, t_min, t_max, k_alpha,
+    noise_rand, cfg, regroup=None,
+):
+    """Fused trace+shade+resolve for secondary rays
+    (IndirectRayGen.hlsl:95-117): accumulate color front-to-back,
+    remember the last contributing hit."""
+    dev = dirs.device
+
+    def make_carry(origins, dirs, aux):
+        m = dirs.shape[1]
+        z = lambda *s: torch.zeros(s, device=dev)
+        return (
+            torch.ones((m,), device=dev), z(3, m), z(3, m), z(3, m), z(3, m),
+            torch.zeros((m,), dtype=torch.int32, device=dev),
+            torch.full((m,), -1, dtype=torch.int32, device=dev),
+        )
+
+    def slot_body(carry, sh, t_s, origins, dirs, aux):
+        res_a, res_rgb, res_pos, res_nrm, res_spec, res_tri, res_inst = carry
+        inst = sh.instance
+        valid = inst >= 0
+        ha = sh.color[3]
+        alpha_contrib = res_a * ha
+        live = valid & (alpha_contrib >= EPSILON) & (res_a > EPSILON)
+        hit_pos = origins + dirs * t_s[None]
+        grow = sh.rows_t
+        spec = grow[R.T_MAT + R.M_SPECULAR : R.T_MAT + R.M_SPECULAR + 3] * sh.specular
+        res_rgb = res_rgb + torch.where(
+            live[None], sh.color[:3] * alpha_contrib[None], 0.0
+        )
+        res_a = torch.where(live, res_a * (1.0 - ha), res_a)
+        res_pos = torch.where(live[None], hit_pos, res_pos)
+        res_nrm = torch.where(live[None], sh.normal, res_nrm)
+        res_spec = torch.where(live[None], spec, res_spec)
+        res_tri = torch.where(live, sh.tri.to(torch.int32), res_tri)
+        res_inst = torch.where(live, inst, res_inst)
+        return res_a, res_rgb, res_pos, res_nrm, res_spec, res_tri, res_inst
+
+    ((res_a, res_rgb, res_pos, res_nrm, res_spec, res_tri, res_inst),
+     dropped) = _fold_shaded_slots(
+        sb, tri_rows, trace_scene, origins, dirs, t_min, t_max,
+        k_alpha, noise_rand, cfg, make_carry, slot_body, regroup=regroup,
+    )
+    res_row = _row_of(tri_rows, res_tri, res_inst >= 0)
+    return (res_rgb, res_a, res_pos, res_nrm, res_spec, res_inst, res_row,
+            dropped)
+
+
+def _background_env(ray_dir):
+    """SampleBackgroundAsEnvMap for bounce-miss rays. Without raster
+    background instances the background plane is black, so this is
+    zeros; with them check_slice has already raised (ROADMAP queue 1
+    item 11)."""
+    return torch.zeros((3, ray_dir.shape[1]), device=ray_dir.device)
+
+
+def _cos_hemisphere(r1, r2, normal):
+    """getCosHemisphereSampleBlueNoise (IndirectRayGen.hlsl:17-29), planar."""
+    a = torch.abs(normal)
+    xm = ((a[0] - a[1]) < 0) & ((a[0] - a[2]) < 0)
+    ym = ((a[1] - a[2]) < 0) & ~xm
+    zm = ~(xm | ym)
+    basis = torch.stack([xm, ym, zm], 0).to(normal.dtype)
+    bitangent = vm.cross(normal, basis)
+    tangent = vm.cross(bitangent, normal)
+    r = torch.sqrt(r1)
+    phi = 2.0 * torch.pi * r2
+    return (
+        tangent * (r * torch.cos(phi))[None]
+        + bitangent * (r * torch.sin(phi))[None]
+        + normal * torch.sqrt(torch.clamp(1.0 - r1, min=0.0))[None]
+    )
+
+
+def indirect_pass(
+    sb, tri_rows, trace_scene, cfg, gp, g: GBuffers, hist: History,
+    pix, bn_table, noise_rand,
+):
+    """IndirectRayGen.hlsl:31-137: 1-bounce blue-noise diffuse GI.
+    Bounce rays are regrouped by direction and their shadow rays by
+    origin before they reach the packet kernels. Returns ((4, N)
+    accumulation: rgb + history length, alpha-drop count)."""
     n = g.instance.shape[0]
     dev = g.instance.device
-    if cfg.gi_samples > 0:
-        raise NotImplementedError("GI is not ported yet: ROADMAP queue 1 item 9")
     ambient3 = gp.ambient_base + gp.ambient_no_gi
     base = ambient3[:, None].expand(3, n)
-    return (torch.cat([base, torch.zeros((1, n), device=dev)], 0),
-            torch.zeros((), dtype=torch.int64, device=dev))
+    fallback = torch.cat([base, torch.zeros((1, n), device=dev)], 0)
+    dropped = torch.zeros((), dtype=torch.int64, device=dev)
+    if cfg.gi_samples <= 0:
+        return fallback, dropped
+
+    ambient = base
+    active = g.instance >= 0
+    origin = g.position
+    normal = g.normal
+
+    prev_rgb, prev_len = _reproject(
+        hist.indirect, hist.depth, hist.normal, g.depth, normal, g.flow, cfg,
+    )
+    new_indirect = torch.where(gp.gi_reproject, prev_rgb, 0.0)
+    hist_len = torch.where(gp.gi_reproject, prev_len, 0.0)
+
+    blue_noise_mult = 64 // cfg.gi_samples
+    t_min = torch.full((n,), tracer.RAY_MIN_DISTANCE, device=dev)
+    # Sky pixels trace nothing: an empty interval lets ray blocks skip.
+    t_max = torch.where(active, tracer.RAY_MAX_DISTANCE, -1.0)
+
+    for s in range(cfg.gi_samples, 0, -1):
+        bn = bluenoise.get_blue_noise(
+            bn_table, pix, gp.frame_count + s * blue_noise_mult
+        )
+        ray_dir = _cos_hemisphere(bn[..., 0], bn[..., 1], normal)
+        (res_rgb, res_a, res_pos, res_nrm, res_spec, res_inst, res_row,
+         gi_drop) = _simple_resolve_fold(
+            sb, tri_rows, trace_scene, origin, ray_dir, t_min, t_max,
+            cfg.k_secondary, noise_rand, cfg, regroup="dir",
+        )
+
+        bg = _background_env(ray_dir)
+        sky_c = sky.sample_sky_plane(
+            sb.quad_pool, sb.quad_records, gp.sky_plane_rec, ray_dir,
+            gp.sky_yaw_offset, gp.sky_diffuse_mult, gp.sky_hsl_mod,
+        )
+        bg = bg * (1.0 - sky_c[3])[None] + sky_c[:3] * sky_c[3][None]
+
+        # 1-light direct estimate at the bounce (IndirectRayGen.hlsl:121-127).
+        ctx = lighting.ctx_from_rows(res_row, res_inst >= 0)
+        direct_b, db_drop = lighting.compute_lights_random(
+            sb, tri_rows, trace_scene, pix, bn_table, gp.frame_count,
+            ray_dir, res_pos, res_nrm, res_spec, ctx,
+            max_light_count=1, di_samples=cfg.di_samples, check_shadows=True,
+            noise_rand=noise_rand, shadow_k_alpha=cfg.k_shadow,
+            opaque_fn=tracer_cuda.make_shadow_opaque_fn(regroup="origin"),
+            alpha_compact=max(1024, (n // 32) * cfg.alpha_shade_boost),
+            shade_boost=cfg.alpha_shade_boost,
+        )
+        bounce = (
+            res_rgb * (1.0 - res_a)[None]
+            * (ambient + direct_b + ctx.self_light)
+            * gp.gi_diffuse_strength
+        )
+        res_ind = ambient + torch.where((res_inst >= 0)[None], bounce, 0.0)
+        res_ind = res_ind + bg * gp.gi_sky_strength * res_a[None]
+
+        hist_len = torch.clamp(hist_len + 1.0, max=64.0)
+        new_indirect = new_indirect + (res_ind - new_indirect) / hist_len[None]
+        dropped = dropped + gi_drop + db_drop
+
+    out = torch.cat([new_indirect, hist_len[None]], 0)
+    return torch.where(active[None], out, fallback), dropped
 
 
 def render_frame(
@@ -685,7 +883,7 @@ def render_frame(
     cfg: RenderConfig,
     visualization_mode: int = 0,
 ) -> FrameOutputs:
-    """The full frame: View::render as one function (the main path)."""
+    """The full frame: View::render as one function."""
     check_slice(sb, cfg, visualization_mode)
     h, w = cfg.rt_height, cfg.rt_width
     n = h * w
@@ -754,13 +952,21 @@ def render_frame(
     direct_accum = direct_pass(
         cfg, gp, g, di_ctx, lighting.finish_lights(di_plan, di_f),
     )
-    indirect_accum, i_drop = indirect_pass(cfg, gp, g)
+    indirect_accum, i_drop = indirect_pass(
+        sb, tri_rows, trace_scene, cfg, gp, g, history, pix, bn, noise_rand,
+    )
     alpha_dropped = alpha_dropped + i_drop
     zeros3 = torch.zeros((3, n), device=dev)
 
     # DI denoise is compiled out in the reference (rt64_view.cpp:1439-1443).
     filtered_direct = direct_accum[:3]
-    filtered_indirect = indirect_accum[:3]
+    if cfg.denoiser_enabled:
+        fi = to_image(cfg, indirect_accum[:3])
+        for _ in range(cfg.gi_filter_passes):
+            fi = filters.gaussian_3x3(fi)
+        filtered_indirect = from_image(cfg, fi)
+    else:
+        filtered_indirect = indirect_accum[:3]
     rt_rgb = to_image(cfg, filters.compose(
         g.diffuse_rgb, g.diffuse_a, filtered_direct, filtered_indirect,
         zeros3, zeros3, g.transparent,

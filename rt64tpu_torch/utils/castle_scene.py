@@ -117,13 +117,20 @@ def _box(cx, cy, cz, sx, sy, sz):
 
 
 def build_castle_scene(width=320, height=240, di_samples=1, gi_samples=1,
-                       denoiser=False, foliage=48, device=None):
+                       denoiser=False, foliage=48, device=None,
+                       terrain_n=48):
     """The castle-grounds workload; device: the torch device to render
-    on (None: the CUDA card)."""
+    on (None: the CUDA card). terrain_n: terrain grid vertices per side;
+    48 is the benchmark scene (16,384-triangle bucket), 128 the large
+    scene (2 x 127^2 terrain triangles, 32,768-triangle bucket), which
+    lies beyond the packet tracer's size switch."""
+    # Terrain + castle (6 boxes) + moat + foliage (4 triangles each).
+    triangles = 2 * (terrain_n - 1) ** 2 + 6 * 12 + 2 + 4 * foliage
+    vertices = terrain_n ** 2 + 6 * 24 + 4 + 8
     limits = SceneLimits(
         max_vertices=1 << 15, max_triangles=1 << 14, max_instances=128,
         max_textures=16, texel_pool=1 << 18, alpha_triangles=256,
-    )
+    ).grown_for(vertices=vertices, triangles=triangles)
     device = rt64tpu_torch.Device(limits, device=device)
     scene = rt64tpu_torch.Scene(device)
     view = rt64tpu_torch.View(scene, width=width, height=height)
@@ -153,8 +160,8 @@ def build_castle_scene(width=320, height=240, di_samples=1, gi_samples=1,
 
     rng = np.random.default_rng(11)
 
-    # Terrain (~4.4k tris).
-    tvs, tidx = _terrain(rng=rng)
+    # Terrain (~4.4k tris at terrain_n = 48).
+    tvs, tidx = _terrain(n=terrain_n, rng=rng)
     tmesh = rt64tpu_torch.Mesh(device, d.MESH_RAYTRACE_ENABLED)
     tdata = interleave(tvs, with_uv=True)
     tmesh.set_mesh(tdata, len(tvs), tdata.shape[1] * 4, tidx)

@@ -2,6 +2,11 @@
 through Device.draw() with torch.profiler and print one JSON line.
 
     python3 -m rt64tpu_torch.utils.frame_profile [--width 640 --height 480 --frames 5]
+    python3 -m rt64tpu_torch.utils.frame_profile --config large-gi
+
+--config castle (the default) is the castle frame without GI; large-gi
+is the large castle (terrain_n 128, beyond the packet tracer's size
+switch) at 1280x720 with gi_samples 1 and the denoiser.
 
 Reports the median wall time per frame, the summed device-kernel time
 per frame (and so the device's idle share), the kernel launch count per
@@ -17,6 +22,14 @@ import subprocess
 import time
 
 
+# name -> ((width, height), build_castle_scene keywords)
+CONFIGS = {
+    "castle": ((640, 480), dict(gi_samples=0)),
+    "large-gi": ((1280, 720),
+                 dict(gi_samples=1, denoiser=True, terrain_n=128)),
+}
+
+
 def main(argv=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -24,16 +37,20 @@ def main(argv=None):
     from rt64tpu_torch.utils.castle_scene import build_castle_scene
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--width", type=int, default=640)
-    ap.add_argument("--height", type=int, default=480)
+    ap.add_argument("--config", choices=sorted(CONFIGS), default="castle")
+    ap.add_argument("--width", type=int, default=None)
+    ap.add_argument("--height", type=int, default=None)
     ap.add_argument("--frames", type=int, default=5)
     ap.add_argument("--top", type=int, default=12)
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("frame_profile needs a CUDA card")
 
+    (width, height), scene_kw = CONFIGS[args.config]
+    args.width = args.width or width
+    args.height = args.height or height
     dev, _, view = build_castle_scene(args.width, args.height, di_samples=1,
-                                      gi_samples=0)
+                                      **scene_kw)
     view.max_reflections = 0
     for _ in range(2):  # warm up: kernel build, boost ladder, allocator
         dev.draw()
@@ -62,7 +79,8 @@ def main(argv=None):
     ).stdout.strip()
     frame_ms = statistics.median(wall)
     print(json.dumps(dict(
-        card=smi, width=args.width, height=args.height, frames=args.frames,
+        card=smi, config=args.config, width=args.width, height=args.height,
+        frames=args.frames,
         frame_ms_median=frame_ms, device_kernel_ms_per_frame=device_ms,
         device_idle_share=max(0.0, 1.0 - device_ms / frame_ms),
         kernel_launches_per_frame=len(kernels) / args.frames,

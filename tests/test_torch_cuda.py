@@ -1,6 +1,6 @@
-"""Card-only tests of the port: K1/K2 against their plain twins, the
-wrappers' launch counting and checks, and a tiny frame on the card
-against the CPU. This file imports torch and rt64tpu_torch only, so it
+"""Card-only tests of the port: K1/K2 and K3/K4 against their plain
+twins, the wrappers' launch counting and checks, and tiny frames on the
+card against the CPU. This file imports torch and rt64tpu_torch only, so it
 runs on a machine without JAX:
 
     python -m pytest tests/test_torch_cuda.py --noconftest -q
@@ -26,7 +26,7 @@ def card():
     return torch.device("cuda")
 
 
-def _prepared(seed, shadow, device):
+def _scene(seed, device):
     rng = np.random.default_rng(seed)
     t = 512
     v0 = rng.uniform(-10, 10, (3, t)).astype(np.float32)
@@ -41,15 +41,44 @@ def _prepared(seed, shadow, device):
                       ).astype(np.float32),
     )
     s = {k: torch.from_numpy(v).to(device) for k, v in s.items()}
-    scene = ptr.TraceScene(**s, alpha_idx=ptr.compact_alpha(s["valid"], s["alpha"], 64))
-    n = 4096
+    return ptr.TraceScene(**s, alpha_idx=ptr.compact_alpha(s["valid"], s["alpha"], 64))
+
+
+def _rays(seed, shadow, device, n=4096):
+    rng = np.random.default_rng(1000 + seed)
     origins = torch.from_numpy(rng.uniform(-15, 15, (3, n)).astype(np.float32)).to(device)
     dirs = torch.from_numpy(rng.normal(size=(3, n)).astype(np.float32)).to(device)
     t_min = torch.zeros(n, device=device)
     t_max = (torch.from_numpy(rng.uniform(1, 30, n).astype(np.float32)).to(device)
              if shadow else torch.full((n,), 1e5, device=device))
+    return origins, dirs, t_min, t_max
+
+
+def _prepared(seed, shadow, device):
     prep = tc.prepare_shadow if shadow else tc.prepare_opaque
-    return prep(origins, dirs, t_min, t_max, scene)
+    return prep(*_rays(seed, shadow, device), _scene(seed, device))
+
+
+@pytest.fixture
+def streaming(monkeypatch):
+    """The 128-triangle path (K3/K4) at any scene size."""
+    monkeypatch.setattr(tc, "RESIDENT_TABLE_BYTES", 0)
+
+
+def _counted(wrapper, args, counts, cluster_size):
+    """Launch a kernel's counting instantiation: (outputs, pairs tested,
+    pairs past the first stage), after the checks every kernel's counts
+    meet: no more visits than listed, no more pairs than the visits hold,
+    and each stage passes no more pairs than the one before."""
+    stats = torch.empty((counts.shape[0], tc.STATS_COLS), dtype=torch.int64,
+                        device=counts.device)
+    out = wrapper(*args, stats=stats)
+    walked, tested, *stages = stats.cpu().T
+    assert (walked <= counts.cpu()).all()
+    assert (tested <= walked * tc.BLOCK_RAYS * cluster_size).all()
+    for before, after in zip([tested] + stages, stages):
+        assert (after <= before).all()
+    return out, tested, stages
 
 
 @pytest.mark.parametrize("cull", [True, False])
@@ -70,13 +99,12 @@ def test_k1_matches_plain_twin(card, cull):
         assert torch.quantile(err, 0.99).item() < 1e-3
     assert torch.equal(b[same], b_p[same])
     # The counting instantiation gives the same result and sane counts.
-    stats = torch.empty((p.counts.shape[0], 3), dtype=torch.int64, device=card)
-    t_s, tri_s, *_ = tc.trace_opaque_blocks(*p[:5], cull, stats=stats)
+    (t_s, tri_s, *_), tested, stages = _counted(
+        tc.trace_opaque_blocks, (*p[:5], cull), p.counts, tc.K_CS)
     assert torch.equal(tri_s, tri) and torch.equal(t_s, t)
-    walked, tested, kept = stats.cpu().T
-    assert (walked <= p.counts.cpu()).all() and (kept <= tested).all()
-    assert (tested <= walked * tc.BLOCK_RAYS * tc.K_CS).all()
-    assert 0 < kept.sum() < tested.sum()
+    assert 0 < stages[0].sum() < tested.sum()
+    # Every hit passed the last stage; a ray may hit several triangles.
+    assert stages[3].sum() >= (tri >= 0).sum().item()
 
 
 def test_k2_matches_plain_twin(card):
@@ -88,11 +116,77 @@ def test_k2_matches_plain_twin(card):
     torch.cuda.synchronize()
     assert (blocked == want).float().mean().item() >= 0.999
     assert 0 < blocked.sum().item() < blocked.numel()
-    stats = torch.empty((p.counts.shape[0], 3), dtype=torch.int64, device=card)
-    assert torch.equal(tc.trace_shadow_blocks(*p[:5], stats=stats), blocked)
-    walked, tested, kept = stats.cpu().T
-    assert (walked <= p.counts.cpu()).all() and (kept <= tested).all()
-    assert (tested <= walked * tc.BLOCK_RAYS * tc.K_CS).all()
+    blocked_s, _, stages = _counted(tc.trace_shadow_blocks, p[:5], p.counts,
+                                    tc.K_CS)
+    assert torch.equal(blocked_s, blocked)
+    # A ray stops at its first blocker: one hit for each blocked ray.
+    assert stages[2].sum() == blocked.sum().item() and stages[3].sum() == 0
+
+
+@pytest.mark.parametrize("cull", [True, False])
+def test_k3_matches_plain_twin(card, streaming, cull):
+    p = _prepared(3, False, card)
+    assert p.mt
+    before = tc.launch_counts.opaque_mt_launches
+    k1_before = tc.launch_counts.opaque_launches
+    t, tri, u, v, b = tc.trace_opaque_mt_blocks(*p[:5], cull)
+    assert tc.launch_counts.opaque_mt_launches == before + 1
+    assert tc.launch_counts.opaque_launches == k1_before
+    t_p, tri_p, u_p, v_p, b_p = tc.trace_opaque_mt_plain(*p[:5], cull)
+    torch.cuda.synchronize()
+    assert (tri == tri_p).float().mean().item() >= 0.999
+    assert ((tri >= 0) != (tri_p >= 0)).float().mean().item() < 0.001
+    same = (tri == tri_p) & (tri >= 0)
+    assert same.any()
+    rel = (t[same] - t_p[same]).abs() / t_p[same].abs().clamp(min=1e-6)
+    assert torch.quantile(rel.double(), 0.99).item() < 1e-3
+    for got, want in ((u, u_p), (v, v_p)):
+        err = (got[same] - want[same]).abs().double()
+        assert torch.quantile(err, 0.99).item() < 1e-3
+    assert torch.equal(b[same], b_p[same])
+    (t_s, tri_s, *_), tested, stages = _counted(
+        tc.trace_opaque_mt_blocks, (*p[:5], cull), p.counts, tc.CLUSTER_SIZE)
+    assert torch.equal(tri_s, tri) and torch.equal(t_s, t)
+    # Without culling every active triangle's determinant passes.
+    assert 0 < stages[0].sum() <= tested.sum()
+    assert (stages[0].sum() < tested.sum()) == cull
+    # Most pairs of a visited cluster fail the u or the v stage.
+    assert stages[3].sum() >= (tri >= 0).sum().item()
+    assert stages[2].sum() < stages[0].sum()
+
+
+def test_k4_matches_plain_twin(card, streaming):
+    p = _prepared(4, True, card)
+    assert p.mt
+    before = tc.launch_counts.shadow_mt_launches
+    blocked = tc.trace_shadow_mt_blocks(*p[:5])
+    assert tc.launch_counts.shadow_mt_launches == before + 1
+    want = tc.trace_shadow_mt_plain(*p[:5])
+    torch.cuda.synchronize()
+    assert (blocked == want).float().mean().item() >= 0.999
+    assert 0 < blocked.sum().item() < blocked.numel()
+    blocked_s, _, stages = _counted(tc.trace_shadow_mt_blocks, p[:5],
+                                    p.counts, tc.CLUSTER_SIZE)
+    assert torch.equal(blocked_s, blocked)
+    # A ray stops at its first blocker: one hit for each blocked ray.
+    assert stages[3].sum() == blocked.sum().item()
+
+
+def test_regroup_parity_on_card(card, monkeypatch):
+    """Regrouped tracing is bit-identical to unregrouped on the card
+    too, on both kernel pairs (a stable sort, an order-free tie rule)."""
+    scene = _scene(7, card)
+    for table_bytes in (tc.RESIDENT_TABLE_BYTES, 0):
+        monkeypatch.setattr(tc, "RESIDENT_TABLE_BYTES", table_bytes)
+        for shadow, make, mode in ((False, tc.make_opaque_fn, "dir"),
+                                   (True, tc.make_shadow_opaque_fn, "origin")):
+            origins, dirs, t_min, t_max = _rays(8, shadow, card, n=3000)
+            t_max[::3] = -1.0  # dead rays
+            plain = make()(origins, dirs, t_min, t_max, scene)
+            grouped = make(regroup=mode)(origins, dirs, t_min, t_max, scene)
+            for a, b in zip(plain, grouped):
+                assert torch.equal(a, b)
+            assert (plain[1] >= 0).any()
 
 
 def test_wrapper_rejects_mixed_devices(card):
@@ -101,14 +195,17 @@ def test_wrapper_rejects_mixed_devices(card):
         tc.trace_opaque_blocks(p.rays8, p.clusters.cpu(), *p[2:5], True)
 
 
-def test_tiny_frame_card_matches_cpu(card):
+@pytest.mark.parametrize("gi", [0, 1])
+def test_tiny_frame_card_matches_cpu(card, gi):
     from rt64tpu_torch.utils.ssim import ssim
     from rt64tpu_torch.utils.testscenes import build_sample_scene
 
     fbs = []
     for device in ("cuda", "cpu"):
-        dev, _, view = build_sample_scene(128, 64, gi_samples=0, device=device)
+        dev, _, view = build_sample_scene(128, 64, gi_samples=gi,
+                                          denoiser=bool(gi), device=device)
         view.max_reflections = 0
-        dev.draw()
+        for _ in range(1 + gi):  # the second GI frame reads history
+            dev.draw()
         fbs.append(view.framebuffer())
     assert ssim(fbs[0][..., :3], fbs[1][..., :3]) >= 0.99

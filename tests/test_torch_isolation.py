@@ -1,6 +1,7 @@
 """rt64tpu_torch stands alone: it imports neither JAX nor the rt64tpu
-package, its Device defaults to the CUDA card, and every feature beyond
-the main path raises NotImplementedError instead of being skipped."""
+package, its Device defaults to the CUDA card, and every feature it
+does not render yet raises NotImplementedError instead of being
+skipped."""
 
 import ast
 import os
@@ -13,6 +14,18 @@ import torch
 
 from rt64tpu_torch import descriptors as d
 from rt64tpu_torch.utils.testscenes import build_sample_scene, hud_triangle
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers side by side, and the torch work
+    here is many tiny eager ops: one intra-op thread is the fastest. The
+    worker's setting comes back when this file is done."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 FORBIDDEN = ("jax", "jaxlib", "rt64tpu")
@@ -51,11 +64,14 @@ def test_tiny_frame_runs_without_jax_or_rt64tpu():
         import sys
         import numpy as np
         from rt64tpu_torch.utils.testscenes import build_sample_scene
-        dev, scene, view = build_sample_scene(64, 32, gi_samples=0, device="cpu")
-        view.max_reflections = 0
-        dev.draw()
-        fb = view.framebuffer()
-        assert fb.shape == (32, 64, 4) and fb[..., :3].std() > 1.0
+        for gi in (0, 1):
+            dev, scene, view = build_sample_scene(
+                64, 32, gi_samples=gi, denoiser=bool(gi), device="cpu")
+            view.max_reflections = 0
+            dev.draw()
+            dev.draw()
+            fb = view.framebuffer()
+            assert fb.shape == (32, 64, 4) and fb[..., :3].std() > 1.0
         bad = [m for m in sys.modules
                if m in ("jax", "jaxlib", "rt64tpu")
                or m.startswith(("jax.", "jaxlib.", "rt64tpu."))]
@@ -87,10 +103,6 @@ def _scene(**kw):
     return dev, scene, view
 
 
-def _gi(dev, scene, view):
-    view.desc.gi_samples = 1
-
-
 def _reflections(dev, scene, view):
     view.max_reflections = 2  # the sphere is reflective
 
@@ -111,10 +123,6 @@ def _motion_blur(dev, scene, view):
     view.desc.motion_blur_strength = 0.5
 
 
-def _denoiser(dev, scene, view):
-    view.desc.denoiser_enabled = True
-
-
 def _visualization(dev, scene, view):
     view.visualization_mode = d.VISUALIZATION_MODE_DEPTH
 
@@ -132,12 +140,44 @@ def _pipelined(dev, scene, view):
 
 
 @pytest.mark.parametrize("enable", [
-    _gi, _reflections, _refraction, _upscaler, _resolution_scale,
-    _motion_blur, _denoiser, _visualization, _raster_hud,
-    _raster_background, _pipelined,
+    _reflections, _refraction, _upscaler, _resolution_scale,
+    _motion_blur, _visualization, _raster_hud, _raster_background, _pipelined,
 ], ids=lambda f: f.__name__.strip("_"))
 def test_out_of_slice_features_raise(enable):
     dev, scene, view = _scene()
     enable(dev, scene, view)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         dev.draw()
+
+
+def _gi(dev, scene, view):
+    view.desc.gi_samples = 1
+
+
+def _denoiser(dev, scene, view):
+    view.desc.denoiser_enabled = True
+
+
+def _gi_denoiser(dev, scene, view):
+    view.desc.gi_samples = 1
+    view.desc.denoiser_enabled = True
+
+
+@pytest.mark.parametrize("enable", [_gi, _denoiser, _gi_denoiser],
+                         ids=lambda f: f.__name__.strip("_"))
+def test_in_slice_features_render(enable):
+    """GI and the GI denoiser render: two frames, the second over the
+    first one's history."""
+    dev, scene, view = _scene()
+    dev.draw()
+    plain = view.framebuffer().copy()
+    enable(dev, scene, view)
+    dev.draw()
+    dev.draw()
+    fb = view.framebuffer()
+    assert fb.shape == plain.shape and fb[..., :3].std() > 1.0
+    hist_len = view._renderer._last.indirect_accum[3]
+    wants_history = view.desc.gi_samples > 0 and view.desc.denoiser_enabled
+    assert bool(hist_len.max() > 1.5) == wants_history
+    if view.desc.gi_samples > 0:
+        assert (fb != plain).any()  # the bounce adds light
