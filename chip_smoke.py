@@ -8,7 +8,8 @@ Run from the repository root with no arguments:
 Phases (each prints one JSON line; any failure exits non-zero before the
 result line):
   1. card: nvidia-smi's name and power limit (verbatim), TF32 off;
-  2. build: nvcc builds csrc/packet_tracer.cu, build seconds;
+  2. build: nvcc builds every source under csrc/ (packet_tracer.cu: K1/K2,
+     mt_tracer.cu: K3/K4), build seconds;
   3. K1 (closest hit) against its plain twin on the castle 640x480
      frame's own primary-ray batch: tri agreement, hit/miss flips,
      t relative and u/v absolute error p99, bias equality, kernel/plain
@@ -24,7 +25,11 @@ result line):
      frame's regrouped bounce launch (incoherent rays, long visit
      lists: the frame's dearest K3 launch);
   8. K4 (occlusion) the same way on that frame's largest shadow launch,
-     with K2 on the same rays, and on its bounce-shadow launch;
+     with K2 on the same rays, and on its bounce-shadow launch; for each
+     of the four K3/K4 launches also the work items, the CTAs of the
+     persistent grid, the cycles of the longest item and block, and
+     order_independent: two production launches, and one with the item
+     table reversed, give equal outputs bit for bit;
   9. large-scene GI path: 10 frames of the large castle (32,768-triangle
      bucket, beyond the size switch) at 1280x720 with di 1, gi 1 and the
      denoiser (which turns GI reprojection on) through Device.draw();
@@ -49,9 +54,11 @@ FP32_FLOPS_PER_S = 67e12
 # it. The pair test returns early after every stage, so a stage is
 # charged only to the pairs that reached it: the kernels' counting
 # instantiations report, per launch, the pairs that live, unblocked rays
-# tested and the pairs that passed stages 1 to 4 (packet_tracer.cu,
-# STATS_COLS). FLOPS_<kernel>[k] is the cost of the stage that a pair
-# reaches by passing k stages.
+# tested and the pairs that passed stages 1 to 4 (csrc/work_stats.cuh).
+# FLOPS_<kernel>[k] is the cost of the stage that a pair reaches by
+# passing k stages. K3/K4 test only the rays that enter a cluster's box,
+# so their counts, and with them their bounds, are lower than those of
+# the same launches before that cull: PREV_MS holds the earlier times.
 # K1 (Woop): the keep test r_z = W[2] d (3 products, 2 sums); then
 # s_z (6) and t = -s_z / r_z (1); then, t in range, s_x (6), r_x (5),
 # u = s_x + t r_x (2); then, u >= 0, s_y (6), r_y (5), v (2), u + v (1);
@@ -68,6 +75,14 @@ FLOPS_K2 = (5, 10, 29, 0, 0)
 # a hit pays, in K3, the key t - bias (1).
 FLOPS_K3 = (14, 10, 16, 6, 1)
 FLOPS_K4 = (14, 10, 16, 6, 0)
+# K3/K4 before their redesign (one CTA per block, one ray per thread, no
+# cull below the block): the same four launches on an NVIDIA H100 80GB
+# HBM3 at 700 W, ms, with the bound each was then held to. Recorded
+# constants, not this run's readings: they are printed on the k3/k4 phase
+# lines only, never on the kernels line.
+PREV_MS = {"k3": 1.349, "k3_bounce": 12.319, "k4": 6.339, "k4_bounce": 3.995}
+PREV_BOUND_MS = {"k3": 0.2141, "k3_bounce": 0.8123, "k4": 0.8542,
+                 "k4_bounce": 0.0880}
 CASTLE_W, CASTLE_H = 640, 480
 MAIN_FRAMES = 10
 LARGE_W, LARGE_H = 1280, 720
@@ -144,13 +159,51 @@ def capture_launches(draw):
 def counted_work(stats, flops_by_stage):
     """Sum a counting launch's per-block rows and charge each stage to
     the pairs that reached it (the tested pairs, then those past stages
-    1 to 4): the fields of the phase's line."""
-    walked, tested, *passed = (int(x) for x in stats.sum(dim=0))
+    1 to 4): the fields of the phase's line. K3/K4 also fill the cycle
+    columns: the cycles a block's items held a CTA, and its longest item."""
+    from rt64tpu_torch.ops import tracer_cuda as tc
+
+    walked, tested, *passed = (
+        int(x) for x in stats[:, :1 + tc.STAT_STAGES].sum(dim=0))
     flops = sum(f * n for f, n in zip(flops_by_stage, [tested] + passed))
-    return dict(visits_walked=walked,
+    work = dict(visits_walked=walked,
                 visits_walked_longest_block=int(stats[:, 0].max()),
                 pairs_tested=tested, pairs_past_stage=passed,
                 flops_per_pair_by_stage=list(flops_by_stage), flops=flops)
+    if int(stats[:, tc.STAT_CYCLES].max()) > 0:
+        work.update(
+            cycles_all_items=int(stats[:, tc.STAT_CYCLES].sum()),
+            cycles_longest_block=int(stats[:, tc.STAT_CYCLES].max()),
+            cycles_longest_item=int(stats[:, tc.STAT_ITEM_CYCLES].max()))
+    return work
+
+
+def work_item_fields(tag, wrapper, args, kw, shadow):
+    """K3/K4 only: the launch's work items and grid, and whether its
+    outputs depend on the order the items ran in (they must not): two
+    production launches, and one with the item table reversed, must give
+    equal outputs bit for bit."""
+    import torch
+    from rt64tpu_torch.ops import tracer_cuda as tc
+
+    counts, n_cols = args[3], args[2].shape[1]
+    items, n_items = tc.work_items_on_card(counts, n_cols)
+    twin_items, twin_n = tc.build_work_items(counts, n_cols)
+    n = int(n_items)
+    check(n == int(twin_n) and torch.equal(items[:n], twin_items[:n]),
+          f"{tag}: the card's item table differs from build_work_items'")
+    backwards = items.clone()
+    backwards[:n] = items[:n].flip(0)
+    as_tuple = lambda out: out if isinstance(out, tuple) else (out,)
+    first = as_tuple(wrapper(*args, **kw))
+    again = as_tuple(wrapper(*args, **kw))
+    turned = as_tuple(wrapper(*args, items=(backwards, n_items), **kw))
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) and torch.equal(a, c)
+               for a, b, c in zip(first, again, turned))
+    return dict(work_items=n, slice_visits=tc.SLICE_VISITS,
+                ctas_launched=min(tc.mt_grid(shadow), items.shape[0]),
+                order_independent=same)
 
 
 def largest(calls):
@@ -161,19 +214,20 @@ def largest(calls):
 
 def closest_hit_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
     """Hold a closest-hit kernel (K1 or K3) against its plain twin on one
-    recorded launch, time both, and bound it by the counted work."""
+    recorded launch (with the keyword arguments the frame gave it), time
+    both, and bound it by the counted work."""
     import torch
     from rt64tpu_torch.ops import tracer_cuda as tc
 
-    (rays8, clusters, visits, counts, entries, cull), _ = call
+    (rays8, clusters, visits, counts, entries, cull), kw = call
     n = rays8.shape[1]
     args = (rays8, clusters, visits, counts, entries, cull)
-    t_k, tri_k, u_k, v_k, b_k = wrapper(*args)
+    t_k, tri_k, u_k, v_k, b_k = wrapper(*args, **kw)
     t_p, tri_p, u_p, v_p, b_p = twin(*args)
     # The counting instantiation: the work this run's data needs.
     stats = torch.empty((counts.shape[0], tc.STATS_COLS), dtype=torch.int64,
                         device=rays8.device)
-    t_s, tri_s, u_s, v_s, b_s = wrapper(*args, stats=stats)
+    t_s, tri_s, u_s, v_s, b_s = wrapper(*args, stats=stats, **kw)
     torch.cuda.synchronize()
     agree = (tri_k == tri_p).float().mean().item()
     flips = ((tri_k >= 0) != (tri_p >= 0)).float().mean().item()
@@ -189,9 +243,12 @@ def closest_hit_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
     stats_same = all(torch.equal(a, b) for a, b in (
         (t_s, t_k), (tri_s, tri_k), (u_s, u_k), (v_s, v_k), (b_s, b_k)))
     del t_p, tri_p, u_p, v_p, b_p, t_s, tri_s, u_s, v_s, b_s
-    ms = time_ms(lambda: wrapper(*args), reps=25)
+    ms = time_ms(lambda: wrapper(*args, **kw), reps=25)
     plain_ms = time_ms(lambda: twin(*args), reps=plain_reps, warmup=1)
     work = counted_work(stats, flops_by_stage)
+    if tag in PREV_MS:
+        work.update(work_item_fields(tag, wrapper, args, kw, shadow=False),
+                    prev_ms=PREV_MS[tag], prev_bound_ms=PREV_BOUND_MS[tag])
     n_bytes = sum(a.numel() * a.element_size()
                   for a in (rays8, clusters, visits, counts, entries))
     n_bytes += 5 * 4 * n
@@ -213,6 +270,8 @@ def closest_hit_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
     check(uv_p99 < 1e-3, f"{tag} u/v abs err p99 {uv_p99} >= 1e-3")
     check(errs["bias"] == 0.0, f"{tag} bias differs by {errs['bias']}")
     check(stats_same, f"{tag}'s counting launch gave another result")
+    check(row.get("order_independent", True),
+          f"{tag}'s outputs depend on the order of its work items")
     return row
 
 
@@ -228,21 +287,24 @@ def occlusion_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
     import torch
     from rt64tpu_torch.ops import tracer_cuda as tc
 
-    (rays8, clusters, visits, counts, entries), _ = call
+    (rays8, clusters, visits, counts, entries), kw = call
     n = rays8.shape[1]
     args = (rays8, clusters, visits, counts, entries)
-    bl_k = wrapper(*args)
+    bl_k = wrapper(*args, **kw)
     bl_p = twin(*args)
     stats = torch.empty((counts.shape[0], tc.STATS_COLS), dtype=torch.int64,
                         device=rays8.device)
-    bl_s = wrapper(*args, stats=stats)
+    bl_s = wrapper(*args, stats=stats, **kw)
     torch.cuda.synchronize()
     agree = (bl_k == bl_p).float().mean().item()
     max_abs = (bl_k - bl_p).abs().max().item()
     stats_same = torch.equal(bl_s, bl_k)
-    ms = time_ms(lambda: wrapper(*args), reps=25)
+    ms = time_ms(lambda: wrapper(*args, **kw), reps=25)
     plain_ms = time_ms(lambda: twin(*args), reps=plain_reps, warmup=1)
     work = counted_work(stats, flops_by_stage)
+    if tag in PREV_MS:
+        work.update(work_item_fields(tag, wrapper, args, kw, shadow=True),
+                    prev_ms=PREV_MS[tag], prev_bound_ms=PREV_BOUND_MS[tag])
     n_bytes = sum(a.numel() * a.element_size() for a in args)
     n_bytes += 4 * n
     bms, by = bound_ms(n_bytes, work["flops"])
@@ -258,6 +320,8 @@ def occlusion_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
     emit(row)
     check(agree >= 0.999, f"{tag} blocked agreement {agree} < 0.999")
     check(stats_same, f"{tag}'s counting launch gave another result")
+    check(row.get("order_independent", True),
+          f"{tag}'s outputs depend on the order of its work items")
     return row
 
 
@@ -320,7 +384,7 @@ def phase_k3(seen):
     k1, (_, tri_w, _, _, _) = same_rays_other_table(
         "k1_on_k3_rays", seen["prepare_opaque"][0], tc.prepare_opaque,
         tc.trace_opaque_blocks, extra=(cull,))
-    _, tri_m, _, _, _ = tc.trace_opaque_mt_blocks(*call[0])
+    _, tri_m, _, _, _ = tc.trace_opaque_mt_blocks(*call[0], **call[1])
     k1["tri_agreement_with_k3"] = (tri_w == tri_m).float().mean().item()
     k1["k3_ms"] = row["ms"]
     k1["k3_over_k1"] = row["ms"] / k1["ms"]
@@ -349,7 +413,7 @@ def phase_k4(seen):
     k2, bl_w = same_rays_other_table(
         "k2_on_k4_rays", largest(seen["prepare_shadow"]), tc.prepare_shadow,
         tc.trace_shadow_blocks)
-    bl_m = tc.trace_shadow_mt_blocks(*call[0])
+    bl_m = tc.trace_shadow_mt_blocks(*call[0], **call[1])
     check(bl_w.shape == bl_m.shape, "K2 and K4 saw different ray batches")
     k2["blocked_agreement_with_k4"] = (bl_w == bl_m).float().mean().item()
     k2["k4_ms"] = row["ms"]
@@ -580,21 +644,24 @@ def run():
     # 10. GI through K1/K2, card vs CPU
     phase_gi_small()
 
-    src = "rt64tpu_torch/csrc/packet_tracer.cu"
     measured = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     # K3 and K4 also carry their bounce launch's numbers, as bounce_<key>.
-    kernel = lambda name, line, launches, row: dict(
-        name=name, route="cuda", source=src,
+    # Every number of this line but bound_ms was measured in this run (the
+    # earlier design's times stand on the k3/k4 phase lines, as prev_ms).
+    kernel = lambda name, src, line, launches, row: dict(
+        name=name, route="cuda", source=f"rt64tpu_torch/csrc/{src}",
         replaces=f"rt64tpu/ops/tracer_pallas.py:{line}", launches=launches,
         **{k: row[k] for k in measured}, library_ms=None,
         **{f"bounce_{k}": row["bounce"][k] for k in measured
            if "bounce" in row})
     emit({"kernels": [
-        kernel("trace_opaque_kernel (K1)", 764, main["opaque_launches"], k1),
-        kernel("trace_shadow_kernel (K2)", 981, main["shadow_launches"], k2),
-        kernel("trace_opaque_mt_kernel (K3)", 572,
+        kernel("trace_opaque_kernel (K1)", "packet_tracer.cu", 764,
+               main["opaque_launches"], k1),
+        kernel("trace_shadow_kernel (K2)", "packet_tracer.cu", 981,
+               main["shadow_launches"], k2),
+        kernel("trace_opaque_mt_kernel (K3)", "mt_tracer.cu", 572,
                large["opaque_mt_launches"], k3),
-        kernel("trace_shadow_mt_kernel (K4)", 1303,
+        kernel("trace_shadow_mt_kernel (K4)", "mt_tracer.cu", 1303,
                large["shadow_mt_launches"], k4),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

@@ -9,11 +9,12 @@ packet-granular:
   2. A two-level slab pre-pass (block_visit_lists, plain torch) reduces
      every 512-ray block to a front-to-back list of the clusters any of
      its rays might hit.
-  3. A kernel walks each block's list, in
-     ``rt64tpu_torch/csrc/packet_tracer.cu``: K1 (closest opaque hit)
-     and K2 (any-hit occlusion) over the 64-triangle Woop table, K3 and
-     K4 (the same two functions) over the 128-triangle
-     Moller-Trumbore table.
+  3. A kernel walks each block's list: K1 (closest opaque hit) and K2
+     (any-hit occlusion) over the 64-triangle Woop table, in
+     ``rt64tpu_torch/csrc/packet_tracer.cu``, one CTA per block; K3 and
+     K4 (the same two functions) over the 128-triangle Moller-Trumbore
+     table, in ``rt64tpu_torch/csrc/mt_tracer.cu``, as work items
+     (block, slice of its list) on a persistent grid (build_work_items).
 
 Each kernel has a plain PyTorch twin that takes the same inputs and
 computes the same function (trace_opaque_plain, trace_shadow_plain,
@@ -41,7 +42,9 @@ Cluster tables, both with the all-zero pad cluster `nc` last:
     cluster, plain f32 (no hi/lo split: the kernels run on CUDA cores,
     not on a bf16-rounding matrix unit);
   Moller-Trumbore, K3/K4: (nc + 1, 12, 128) f32, one SoA block per
-    128-triangle cluster: v0, e1, e2, depth bias, active, no_cull.
+    128-triangle cluster: v0, e1, e2, depth bias, active, no_cull. The
+    kernels read its repacked form (pack_mt_clusters): 16-byte operands
+    per triangle and the cluster's box, (nc + 1, PK_FLOAT4S, 4) f32.
 
 The size switch (clusters_resident): the JAX package keeps its Woop
 table resident in on-chip memory while it fits RESIDENT_TABLE_BYTES
@@ -61,6 +64,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import weakref
 from typing import NamedTuple
 
 import torch
@@ -77,9 +81,21 @@ BLOCK_RAYS = 512  # rays per CTA and per visit list
 GROUP_CLUSTERS = 8
 VISIT_UNROLL = 4  # K1 visits per early-out check (packet_tracer.cu)
 SHADOW_UNROLL = 8  # K2 visits per early-out check (packet_tracer.cu)
-# Columns of a kernel's optional work-count buffer (packet_tracer.cu):
-# visits walked, pairs tested, pairs past stages 1-4 of the pair test.
-STATS_COLS = 6
+# Columns of a kernel's optional work-count buffer (csrc/work_stats.cuh):
+# visits walked, pairs tested, pairs past stages 1-4 of the pair test,
+# then (K3/K4 only) the cycles the block's work items held a CTA and the
+# longest single item's cycles.
+STATS_COLS = 8
+STAT_STAGES = 5  # columns 1..5: pairs tested, then past each stage
+STAT_CYCLES = 6
+STAT_ITEM_CYCLES = 7
+# K3/K4 (csrc/mt_tracer.cu): visits per work item, float4s of one
+# cluster of the kernel-side table (3 x 128 triangle operands + the box),
+# and the triangles of the smallest warp task (a ray that enters a
+# cluster is tested by at most CLUSTER_SIZE // TASK_TRIS_FEW tasks).
+SLICE_VISITS = 16
+PK_FLOAT4S = 3 * CLUSTER_SIZE + 2
+TASK_TRIS_FEW = 8
 # The size switch (see the module docstring): the byte size of the JAX
 # package's resident table, (T // 64) clusters of 13 x 192 f32, against
 # its budget.
@@ -103,7 +119,7 @@ M_NO_CULL = 11
 M_ROWS = 12
 
 _PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-_SOURCE = os.path.join(_PKG_DIR, "csrc", "packet_tracer.cu")
+_CSRC = os.path.join(_PKG_DIR, "csrc")
 _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "rt64tpu_torch")
 
 
@@ -332,42 +348,97 @@ def _nvcc() -> str:
                        "rt64tpu_torch/csrc on a machine with the CUDA toolkit")
 
 
+def _csrc_digest():
+    """(file names, hash) of every source and header under csrc/ (the
+    regular *.cu, *.cuh and *.h files: the sources and all they include),
+    so that no edit there reuses an old build."""
+    names = sorted(
+        n for n in os.listdir(_CSRC)
+        if n.endswith((".cu", ".cuh", ".h"))
+        and os.path.isfile(os.path.join(_CSRC, n)))
+    sha = hashlib.sha256()
+    for name in names:
+        with open(os.path.join(_CSRC, name), "rb") as f:
+            sha.update(name.encode() + b"\0" + f.read() + b"\0")
+    return names, sha.hexdigest()[:16]
+
+
 @functools.lru_cache(maxsize=1)
 def kernel_library() -> KernelLibrary:
-    """Build (if needed) and load the packet-tracer library. The build
-    output is cached under build/rt64tpu_torch/ by a hash of the source."""
+    """Build (if needed) and load the packet-tracer library: every .cu
+    under csrc/ compiled by its own nvcc (all started together), then
+    linked into one shared library. The build output is cached under
+    build/rt64tpu_torch/ by a hash of every file under csrc/."""
     import time
 
-    with open(_SOURCE, "rb") as f:
-        digest = hashlib.sha256(f.read()).hexdigest()[:16]
+    names, digest = _csrc_digest()
     os.makedirs(_BUILD_DIR, exist_ok=True)
     path = os.path.join(_BUILD_DIR, f"packet_tracer_{digest}.so")
     seconds, log = 0.0, ""
     if not os.path.exists(path):
-        tmp = f"{path}.{os.getpid()}.tmp"
-        cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
-               "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-               "-Xptxas=-v", "-o", tmp, _SOURCE]
+        tmp = f"{path}.{os.getpid()}"
+        nvcc = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
+                "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        sources = [n for n in names if n.endswith(".cu")]
+        objects = [f"{tmp}.{n}.o" for n in sources]
+        procs = [
+            subprocess.Popen(
+                nvcc + ["-Xptxas=-v", "-c", "-o", obj, os.path.join(_CSRC, n)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for n, obj in zip(sources, objects)
+        ]
+        outs = [proc.communicate()[0] for proc in procs]
+        log = "".join(outs)
+        failed = [n for n, proc in zip(sources, procs) if proc.returncode != 0]
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+        link = subprocess.run(nvcc + ["-shared", "-o", f"{tmp}.so"] + objects,
+                              capture_output=True, text=True)
+        log += link.stdout + link.stderr
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc failed to link ({link.returncode}):\n{log}")
         seconds = time.perf_counter() - t0
-        log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{log}")
-        os.replace(tmp, path)
+        for obj in objects:
+            os.remove(obj)
+        os.replace(f"{tmp}.so", path)
+    return KernelLibrary(_load_library(path), path, seconds, log)
+
+
+# The C functions of the library: a pointer or a stream passed without
+# c_void_p would be cut to 32 bits.
+_P, _I = ctypes.c_void_p, ctypes.c_int
+C_SIGNATURES = {
+    # rays8, blocks, clusters, n_tab, visits, counts, entries, n_cols,
+    # cull, t, tri, u, v, bias, stats, stream
+    "rt64_trace_opaque": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P,
+                          _P, _P, _P, _P],
+    # ... entries, n_cols, blocked, stats, stream
+    "rt64_trace_shadow": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P],
+    # rays8, blocks, table, n_tab, visits, counts, entries, n_cols, cull,
+    # items, n_items, max_items, build_items, counter, packed, t, tri, u,
+    # v, bias, stats, stream
+    "rt64_trace_opaque_mt": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P, _I,
+                             _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
+    # ... entries, n_cols, items, n_items, max_items, build_items,
+    # counter, blocked, stats, stream
+    "rt64_trace_shadow_mt": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I,
+                             _P, _P, _P, _P],
+    # shadow, stats
+    "rt64_mt_grid": [_I, _I],
+    # counts, blocks, max_items, items, n_items, stream
+    "rt64_mt_items": [_P, _I, _I, _P, _P, _P],
+}
+
+
+def _load_library(path):
+    """Load a built kernel library and declare its C functions."""
     lib = ctypes.CDLL(path)
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.rt64_trace_opaque.argtypes = [
-        p, i, p, i, p, p, p, i, i, p, p, p, p, p, p, p,
-    ]
-    lib.rt64_trace_opaque.restype = ctypes.c_int
-    lib.rt64_trace_shadow.argtypes = [p, i, p, i, p, p, p, i, p, p, p]
-    lib.rt64_trace_shadow.restype = ctypes.c_int
-    lib.rt64_trace_opaque_mt.argtypes = lib.rt64_trace_opaque.argtypes
-    lib.rt64_trace_opaque_mt.restype = ctypes.c_int
-    lib.rt64_trace_shadow_mt.argtypes = lib.rt64_trace_shadow.argtypes
-    lib.rt64_trace_shadow_mt.restype = ctypes.c_int
-    return KernelLibrary(lib, path, seconds, log)
+    for name, argtypes in C_SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
 
 
 def _check_inputs(rays8, clusters, visits, counts, entries,
@@ -438,16 +509,15 @@ def trace_opaque_blocks(rays8, clusters, visits, counts, entries,
     if rays8.device.type == "cpu":
         return trace_opaque_plain(rays8, clusters, visits, counts, entries,
                                   cull_backface)
-    out = _launch_opaque("rt64_trace_opaque", "trace_opaque_kernel", rays8,
-                         clusters, visits, counts, entries, n_blocks, n_cols,
-                         cull_backface, stats)
+    out = _launch_opaque(rays8, clusters, visits, counts, entries, n_blocks,
+                         n_cols, cull_backface, stats)
     launch_counts.opaque_launches += 1
     return out
 
 
-def _launch_opaque(entry, name, rays8, clusters, visits, counts, entries,
-                   n_blocks, n_cols, cull_backface, stats):
-    """Launch a closest-hit kernel (K1 or K3) on the current stream."""
+def _launch_opaque(rays8, clusters, visits, counts, entries, n_blocks, n_cols,
+                   cull_backface, stats):
+    """Launch K1 on the current stream."""
     if rays8.device.type != "cuda":
         raise ValueError(f"unsupported device {rays8.device}")
     lib = kernel_library().lib
@@ -460,13 +530,13 @@ def _launch_opaque(entry, name, rays8, clusters, visits, counts, entries,
     bias = torch.empty(n, dtype=torch.float32, device=dev)
     stats_ptr = _stats_ptr(stats, n_blocks, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(lib, entry)(
+    err = lib.rt64_trace_opaque(
         rays8.data_ptr(), n_blocks, clusters.data_ptr(), clusters.shape[0],
         visits.data_ptr(), counts.data_ptr(), entries.data_ptr(), n_cols,
         int(bool(cull_backface)), t.data_ptr(), tri.data_ptr(),
         u.data_ptr(), v.data_ptr(), bias.data_ptr(), stats_ptr, stream,
     )
-    _raise_on(err, name)
+    _raise_on(err, "trace_opaque_kernel")
     return t, tri, u, v, bias
 
 
@@ -565,16 +635,15 @@ def trace_shadow_blocks(rays8, clusters, visits, counts, entries,
     n_blocks, n_cols = _check_inputs(rays8, clusters, visits, counts, entries)
     if rays8.device.type == "cpu":
         return trace_shadow_plain(rays8, clusters, visits, counts, entries)
-    blocked = _launch_shadow("rt64_trace_shadow", "trace_shadow_kernel", rays8,
-                             clusters, visits, counts, entries, n_blocks,
-                             n_cols, stats)
+    blocked = _launch_shadow(rays8, clusters, visits, counts, entries,
+                             n_blocks, n_cols, stats)
     launch_counts.shadow_launches += 1
     return blocked
 
 
-def _launch_shadow(entry, name, rays8, clusters, visits, counts, entries,
-                   n_blocks, n_cols, stats):
-    """Launch an occlusion kernel (K2 or K4) on the current stream."""
+def _launch_shadow(rays8, clusters, visits, counts, entries, n_blocks, n_cols,
+                   stats):
+    """Launch K2 on the current stream."""
     if rays8.device.type != "cuda":
         raise ValueError(f"unsupported device {rays8.device}")
     lib = kernel_library().lib
@@ -582,12 +651,12 @@ def _launch_shadow(entry, name, rays8, clusters, visits, counts, entries,
     blocked = torch.empty(n_blocks * BLOCK_RAYS, dtype=torch.int32, device=dev)
     stats_ptr = _stats_ptr(stats, n_blocks, dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    err = getattr(lib, entry)(
+    err = lib.rt64_trace_shadow(
         rays8.data_ptr(), n_blocks, clusters.data_ptr(), clusters.shape[0],
         visits.data_ptr(), counts.data_ptr(), entries.data_ptr(), n_cols,
         blocked.data_ptr(), stats_ptr, stream,
     )
-    _raise_on(err, name)
+    _raise_on(err, "trace_shadow_kernel")
     return blocked
 
 
@@ -623,8 +692,189 @@ _TWIN_TILE_PAIRS = 1 << 25
 _MT_TABLE = (M_ROWS, CLUSTER_SIZE)
 
 
+def pack_mt_clusters(clusters, lo, hi):
+    """The kernel-side table of K3/K4, (nc + 1, PK_FLOAT4S, 4) f32, from
+    build_cluster_data's (nc + 1, 12, 128) table: per cluster 128 float4
+    {e1, depth bias}, 128 {e2, class}, 128 {v0, 0}, then the cluster's
+    box as {lo, largest depth bias of the cluster} and {hi, 0}.
+
+    class is 0 for an inactive triangle, 1 single-sided, 2 double-sided;
+    an inactive triangle's e1, e2 and v0 are zeroed, so its determinant
+    is 0 and the pair test rejects it without reading a flag. lo, hi:
+    build_cluster_boxes(scene, CLUSTER_SIZE), each (3, nc): the boxes the
+    visit lists were made from. The pad cluster gets an inverted
+    (never-entered) box, as build_cluster_boxes gives every cluster
+    without an active triangle."""
+    n_tab = clusters.shape[0]
+    active = clusters[:, M_ACTIVE] > 0.0  # (n_tab, 128)
+    geo = torch.where(active[:, None, :], clusters[:, :M_BIAS], 0.0)
+    bias = clusters[:, M_BIAS]
+    cls = torch.where(active, 1.0 + (clusters[:, M_NO_CULL] > 0.0), 0.0)
+    planes = torch.stack([
+        torch.cat([geo[:, M_E1:M_E1 + 3], bias[:, None]], dim=1),
+        torch.cat([geo[:, M_E2:M_E2 + 3], cls[:, None]], dim=1),
+        torch.cat([geo[:, M_V0:M_V0 + 3], torch.zeros_like(bias)[:, None]],
+                  dim=1),
+    ], dim=1)  # (n_tab, 3, 4, 128)
+    tris = planes.permute(0, 1, 3, 2).reshape(n_tab, 3 * CLUSTER_SIZE, 4)
+    pad = lambda a, fill: torch.cat(
+        [a.T, torch.full((n_tab - a.shape[1], 3), fill, device=a.device)])
+    lo, hi = pad(lo, _BIG), pad(hi, -_BIG)
+    bias_max = torch.where(active, bias, -_BIG).amax(dim=1)
+    bias_max = torch.where(active.any(dim=1), bias_max, 0.0)
+    box = torch.stack([
+        torch.cat([lo, bias_max[:, None]], dim=1),
+        torch.cat([hi, torch.zeros_like(bias_max)[:, None]], dim=1),
+    ], dim=1)  # (n_tab, 2, 4)
+    return torch.cat([tris, box], dim=1).contiguous()
+
+
+def cluster_slab_mask(rays8, packed):
+    """Torch twin of the kernels' per-ray cluster cull: (N, nc + 1) bool,
+    True where a live ray's widened slab interval against the cluster's
+    box (the box rows of the kernel-side table) meets [t_min, t_max].
+    The kernels test a ray against a cluster only where this holds."""
+    box = packed[:, 3 * CLUSTER_SIZE:, :3]  # (n_tab, 2, 3)
+    hit, _ = _slab_per_ray_live(rays8[0:3], rays8[3:6], rays8[6], rays8[7],
+                                box[:, 0].T.contiguous(),
+                                box[:, 1].T.contiguous())
+    return hit
+
+
+def build_work_items(counts, n_cols: int):
+    """The work items of a K3/K4 launch: every block's visit list cut
+    into slices of at most SLICE_VISITS visits.
+
+    Returns (items (B * ceil(n_cols / SLICE_VISITS),) int32, n_items
+    (1,) int32). Only the first n_items entries are items. An item is
+    the code slice * B + block: it stands for visits
+    [slice * SLICE_VISITS, (slice + 1) * SLICE_VISITS) of that block's
+    list (work_item_slices decodes). Items come slice-major: every
+    block's first slice before any second slice, so a block's front
+    slices start before its back slices and have usually lowered the
+    block's bound by then, and the last items to start are single slices
+    of the longest lists. This is the twin of mt_items_kernel, which
+    builds the same table on the card in one launch; nothing is read
+    back here either."""
+    n_blocks = counts.shape[0]
+    dev = counts.device
+    max_slices = -(-n_cols // SLICE_VISITS)
+    levels = torch.arange(max_slices, device=dev, dtype=torch.int32)[:, None]
+    codes = torch.arange(max_slices * n_blocks, device=dev, dtype=torch.int32)
+    slices = (counts + (SLICE_VISITS - 1)) // SLICE_VISITS  # (B,)
+    valid = (levels < slices[None, :]).reshape(-1)  # slice-major grid
+    # Stable compaction: an item's place is the number of items before it.
+    place = torch.cumsum(valid, dim=0)
+    dest = torch.where(valid, place - 1, codes.shape[0])
+    items = torch.empty(codes.shape[0] + 1, dtype=torch.int32, device=dev)
+    items.scatter_(0, dest, codes)
+    return items[:-1], place[-1:].to(torch.int32)
+
+
+def work_item_slices(items, n_items, n_blocks: int):
+    """Decode build_work_items' codes: (block, first visit) of each of
+    the n_items items, two (n_items,) int64 tensors (reads n_items back)."""
+    codes = items[: int(n_items)].to(torch.int64)
+    return codes % n_blocks, (codes // n_blocks) * SLICE_VISITS
+
+
+def pack_key(key, tid):
+    """Torch twin of K3's packed merge word (mt_tracer.cu pack_hit): the
+    biased key's float bits mapped to an order-preserving unsigned (all
+    bits of a negative flipped, the sign bit of a non-negative set, -0.0
+    made +0.0 first) above ~tid. Returned as int64 with the top bit
+    flipped, so that signed order here equals the kernel's unsigned
+    order: the minimum is the smallest key and, among equal keys, the
+    largest id; tid -1 (a miss) wins every tie."""
+    key = torch.where(key == 0.0, torch.zeros_like(key), key)
+    b = key.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    k = torch.where((b & 0x80000000) != 0, ~b & 0xFFFFFFFF, b | 0x80000000)
+    low = ~tid.to(torch.int64) & 0xFFFFFFFF
+    return ((k - 0x80000000) << 32) | low
+
+
+def unpack_key(packed):
+    """Inverse of pack_key: (key f32, tid int32)."""
+    k = (packed >> 32) + 0x80000000
+    b = torch.where((k & 0x80000000) != 0, k & 0x7FFFFFFF, ~k & 0xFFFFFFFF)
+    wrap = lambda x: ((x ^ 0x80000000) - 0x80000000).to(torch.int32)
+    return (wrap(b).view(torch.float32),
+            wrap(~packed & 0xFFFFFFFF))
+
+
+def mt_grid(shadow: bool, stats: bool = False) -> int:
+    """CTAs of K3's (or, shadow, K4's) persistent grid on the current
+    card: SMs x resident CTAs, before a launch clips it to its item
+    table's size."""
+    grid = kernel_library().lib.rt64_mt_grid(int(shadow), int(stats))
+    if grid <= 0:
+        raise RuntimeError(f"rt64_mt_grid failed: cudaError {-grid}")
+    return grid
+
+
+class _MtLaunch(NamedTuple):
+    """The K3/K4-only inputs of a card launch."""
+
+    packed: torch.Tensor  # the kernel-side cluster table
+    items: torch.Tensor  # (max_items,) int32 item codes
+    n_items: torch.Tensor  # (1,) int32
+    build_items: bool  # the launch fills items and n_items itself
+    counter: torch.Tensor  # the grid's work counter, zeroed
+
+
+def _mt_launch_inputs(rays8, clusters, counts, n_cols, packed, items):
+    """Validate and complete the K3/K4-only inputs of a card launch.
+    Without `items` the launch builds build_work_items' table itself, in
+    one small kernel (mt_items_kernel) instead of a dozen torch ops."""
+    dev = rays8.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    n_tab = clusters.shape[0]
+    if packed is None:
+        raise ValueError("a launch on the card needs packed, "
+                         "pack_mt_clusters' kernel-side table")
+    if (packed.dtype != torch.float32
+            or tuple(packed.shape) != (n_tab, PK_FLOAT4S, 4)
+            or packed.device != dev or not packed.is_contiguous()
+            or packed.data_ptr() % 16):
+        raise ValueError(f"packed must be a contiguous, 16-byte aligned "
+                         f"({n_tab}, {PK_FLOAT4S}, 4) f32 tensor on {dev}")
+    max_items = counts.shape[0] * -(-n_cols // SLICE_VISITS)
+    build_items = items is None
+    if build_items:
+        items = (torch.empty(max_items, dtype=torch.int32, device=dev),
+                 torch.empty(1, dtype=torch.int32, device=dev))
+    table, n_items = items
+    for t, shape, name in ((table, (max_items,), "items"),
+                           (n_items, (1,), "n_items")):
+        if (t.dtype != torch.int32 or tuple(t.shape) != shape
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {shape} int32 "
+                             f"tensor on {dev}")
+    # The work counter is zeroed on this stream before every launch.
+    counter = torch.zeros(1, dtype=torch.int32, device=dev)
+    return _MtLaunch(packed, table, n_items, build_items, counter)
+
+
+def work_items_on_card(counts, n_cols: int):
+    """build_work_items as the card's launches make it when they are
+    given no table: (items, n_items) from mt_items_kernel alone (for
+    tests and chip_smoke.py; the launches build it in passing)."""
+    dev = counts.device
+    max_items = counts.shape[0] * -(-n_cols // SLICE_VISITS)
+    items = torch.empty(max_items, dtype=torch.int32, device=dev)
+    n_items = torch.zeros(1, dtype=torch.int32, device=dev)
+    if max_items:
+        err = kernel_library().lib.rt64_mt_items(
+            counts.data_ptr(), counts.shape[0], max_items, items.data_ptr(),
+            n_items.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(err, "mt_items_kernel")
+    return items, n_items
+
+
 def trace_opaque_mt_blocks(rays8, clusters, visits, counts, entries,
-                           cull_backface: bool, stats=None):
+                           cull_backface: bool, stats=None, packed=None,
+                           items=None):
     """Closest opaque hit per ray over per-block visit lists of
     128-triangle Moller-Trumbore clusters.
 
@@ -633,34 +883,84 @@ def trace_opaque_mt_blocks(rays8, clusters, visits, counts, entries,
     key, tri int32 (-1 miss), u, v, bias), each (B*512,); a miss reports
     t = t_max + 1. stats: as for trace_opaque_blocks, with the pairs
     counted over active triangles (tested) and the stages of the
-    Moller-Trumbore test: the determinant, u, v with u + v, t in range.
+    Moller-Trumbore test: the determinant, u, v with u + v, t in range;
+    K3 also fills the two cycle columns (STAT_CYCLES, STAT_ITEM_CYCLES).
 
-    CPU tensors take trace_opaque_mt_plain; CUDA tensors launch K3."""
+    CPU tensors take trace_opaque_mt_plain; CUDA tensors launch K3
+    (csrc/mt_tracer.cu). On the card the time goes to the pair test
+    (bound by instruction dispatch: a warp runs every stage any of its
+    lanes reaches, for all its lanes) and, for incoherent rays, used to
+    go to the one CTA that walked the longest list. So K3 runs as work
+    items, slices of SLICE_VISITS visits of one block's list (items:
+    build_work_items' table, made by the launch itself when not given),
+    pulled by a persistent grid; clusters arrive through an asynchronous
+    shared-memory ring; per visit every ray is put to the slab test
+    against the cluster's box (the box rows of packed, the scene's
+    pack_mt_clusters table, which a launch on the card must be given:
+    prepare_opaque's result carries it; cluster_slab_mask is the test's
+    twin) and
+    only the rays that enter are gathered and dealt to the warps as
+    tasks of 32 rays x 8 or 16 triangles; the pair test reads 16-byte
+    operands. Items and tasks merge through atomicMin on a packed
+    (key, ~id) word per ray (pack_key is its twin), which is the tie
+    rule, so the result does not depend on the order they ran in; a last
+    pass recomputes u, v and bias from the winning triangle."""
     n_blocks, n_cols = _check_inputs(rays8, clusters, visits, counts, entries,
                                      _MT_TABLE)
     if rays8.device.type == "cpu":
         return trace_opaque_mt_plain(rays8, clusters, visits, counts, entries,
                                      cull_backface)
-    out = _launch_opaque("rt64_trace_opaque_mt", "trace_opaque_mt_kernel",
-                         rays8, clusters, visits, counts, entries, n_blocks,
-                         n_cols, cull_backface, stats)
+    mt = _mt_launch_inputs(rays8, clusters, counts, n_cols, packed, items)
+    dev = rays8.device
+    n = n_blocks * BLOCK_RAYS
+    best = torch.empty(n, dtype=torch.int64, device=dev)  # the merge words
+    t = torch.empty(n, dtype=torch.float32, device=dev)
+    tri = torch.empty(n, dtype=torch.int32, device=dev)
+    u = torch.empty(n, dtype=torch.float32, device=dev)
+    v = torch.empty(n, dtype=torch.float32, device=dev)
+    bias = torch.empty(n, dtype=torch.float32, device=dev)
+    stats_ptr = _stats_ptr(stats, n_blocks, dev)
+    err = kernel_library().lib.rt64_trace_opaque_mt(
+        rays8.data_ptr(), n_blocks, mt.packed.data_ptr(), mt.packed.shape[0],
+        visits.data_ptr(), counts.data_ptr(), entries.data_ptr(), n_cols,
+        int(bool(cull_backface)), mt.items.data_ptr(), mt.n_items.data_ptr(),
+        mt.items.shape[0], int(mt.build_items), mt.counter.data_ptr(),
+        best.data_ptr(), t.data_ptr(),
+        tri.data_ptr(), u.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        stats_ptr, torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "trace_opaque_mt_kernel")
     launch_counts.opaque_mt_launches += 1
-    return out
+    return t, tri, u, v, bias
 
 
 def trace_shadow_mt_blocks(rays8, clusters, visits, counts, entries,
-                           stats=None):
+                           stats=None, packed=None, items=None):
     """Occlusion per ray over per-block visit lists of 128-triangle
     Moller-Trumbore clusters (never culls). Returns (B*512,) int32
     blocked flags. CPU tensors take trace_shadow_mt_plain; CUDA tensors
-    launch K4. stats: as for trace_opaque_mt_blocks."""
+    launch K4 (csrc/mt_tracer.cu). stats, packed, items and the design:
+    as for trace_opaque_mt_blocks; K4's items merge through the flags
+    themselves (zero-filled here; a slice that blocks a ray stores 1,
+    and an item skips the rays an earlier one has blocked), and a
+    block's bound is the largest t_max among its unblocked rays."""
     n_blocks, n_cols = _check_inputs(rays8, clusters, visits, counts, entries,
                                      _MT_TABLE)
     if rays8.device.type == "cpu":
         return trace_shadow_mt_plain(rays8, clusters, visits, counts, entries)
-    blocked = _launch_shadow("rt64_trace_shadow_mt", "trace_shadow_mt_kernel",
-                             rays8, clusters, visits, counts, entries,
-                             n_blocks, n_cols, stats)
+    mt = _mt_launch_inputs(rays8, clusters, counts, n_cols, packed, items)
+    dev = rays8.device
+    blocked = torch.zeros(n_blocks * BLOCK_RAYS, dtype=torch.int32, device=dev)
+    stats_ptr = _stats_ptr(stats, n_blocks, dev)
+    err = kernel_library().lib.rt64_trace_shadow_mt(
+        rays8.data_ptr(), n_blocks, mt.packed.data_ptr(), mt.packed.shape[0],
+        visits.data_ptr(), counts.data_ptr(), entries.data_ptr(), n_cols,
+        mt.items.data_ptr(), mt.n_items.data_ptr(), mt.items.shape[0],
+        int(mt.build_items), mt.counter.data_ptr(), blocked.data_ptr(),
+        stats_ptr,
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, "trace_shadow_mt_kernel")
     launch_counts.shadow_mt_launches += 1
     return blocked
 
@@ -840,6 +1140,7 @@ class PacketInputs(NamedTuple):
     entries: torch.Tensor
     n: int  # real rays (the rest of rays8 is padding)
     mt: bool  # the 128-triangle MT table (K3/K4), else the Woop table
+    packed: torch.Tensor | None = None  # K3/K4's kernel-side table
 
 
 def _pad_to_blocks(origins, dirs, t_min, t_max):
@@ -857,27 +1158,59 @@ def _pad_to_blocks(origins, dirs, t_min, t_max):
             torch.cat([t_max, z(t_max) - 1.0]))
 
 
-def _switch_boxes(scene):
-    """Ask the size switch and build the cluster boxes at its
-    granularity: (resident, lo, hi)."""
+class SceneTables(NamedTuple):
+    """What a launch needs of the scene alone (not of its rays)."""
+
+    resident: bool  # the size switch's answer
+    lo: torch.Tensor  # cluster boxes at the switch's granularity
+    hi: torch.Tensor
+    table: torch.Tensor  # Woop (resident) or Moller-Trumbore cluster table
+    packed: torch.Tensor | None  # K3/K4's kernel-side table (card only)
+
+
+def _scene_tables(scene) -> SceneTables:
+    """Ask the size switch and build the scene's boxes and cluster
+    tables. A frame traces one scene several times (primary, shadow and
+    bounce launches), so the tables are kept with the scene: as an
+    attribute of its v0 tensor, so that they are freed with it. They are
+    reused while the caller passes the very same tensors and none of
+    them has been written to since."""
+    tensors = (scene.v0, scene.v1, scene.v2, scene.valid, scene.alpha,
+               scene.no_cull, scene.bias)
+    stamp = (RESIDENT_TABLE_BYTES,) + tuple(t._version for t in tensors)
+    memo = getattr(scene.v0, "_rt64_scene_tables", None)
+    if (memo is not None and memo[1] == stamp
+            and all(ref() is t for ref, t in zip(memo[0], tensors))):
+        return memo[2]
     resident = clusters_resident(scene.num_triangles)
     lo, hi = build_cluster_boxes(scene, K_CS if resident else CLUSTER_SIZE)
-    return resident, lo, hi
+    packed = None
+    if resident:
+        table = build_cluster_mats(scene)
+    else:
+        table = build_cluster_data(scene)
+        if table.device.type == "cuda":  # only the card's kernels read it
+            packed = pack_mt_clusters(table, lo, hi)
+    tables = SceneTables(resident, lo, hi, table, packed)
+    scene.v0._rt64_scene_tables = (
+        tuple(weakref.ref(t) for t in tensors), stamp, tables)
+    return tables
 
 
-def _packet_inputs(origins_p, dirs_p, t_min_p, t_max_p, scene, n, resident,
-                   lo, hi, bias_max=0.0) -> PacketInputs:
-    """Cluster table and visit lists of one launch of padded rays."""
+def _packet_inputs(origins_p, dirs_p, t_min_p, t_max_p, n,
+                   tables: SceneTables, bias_max=0.0) -> PacketInputs:
+    """Visit lists of one launch of padded rays, with the scene's tables."""
     rays8 = torch.cat(
         [origins_p, dirs_p, t_min_p[None], t_max_p[None]], dim=0
     ).contiguous()
     visits, counts, entries = block_visit_lists(
-        origins_p, dirs_p, t_min_p, t_max_p, lo, hi, bias_max=bias_max,
-        group_clusters=2 * GROUP_CLUSTERS if resident else GROUP_CLUSTERS,
+        origins_p, dirs_p, t_min_p, t_max_p, tables.lo, tables.hi,
+        bias_max=bias_max,
+        group_clusters=(2 * GROUP_CLUSTERS if tables.resident
+                        else GROUP_CLUSTERS),
     )
-    table = build_cluster_mats(scene) if resident else build_cluster_data(scene)
-    return PacketInputs(rays8, table, visits, counts, entries, n,
-                        not resident)
+    return PacketInputs(rays8, tables.table, visits, counts, entries, n,
+                        not tables.resident, tables.packed)
 
 
 def prepare_opaque(origins, dirs, t_min, t_max, scene) -> PacketInputs:
@@ -888,7 +1221,8 @@ def prepare_opaque(origins, dirs, t_min, t_max, scene) -> PacketInputs:
     origins_p, dirs_p, t_min_p, t_max_p = _pad_to_blocks(
         origins, dirs, t_min, t_max
     )
-    resident, lo, hi = _switch_boxes(scene)
+    tables = _scene_tables(scene)
+    lo, hi = tables.lo, tables.hi
     # Clamp each ray's t_max to its scene-box exit: rays that leave the
     # geometry stop gating the packet early-out, and rays that miss the
     # scene visit nothing. Misses are tri == -1, so results never change.
@@ -909,8 +1243,8 @@ def prepare_opaque(origins, dirs, t_min, t_max, scene) -> PacketInputs:
     t_max_k = torch.where(in_box, torch.minimum(t_max_p, g_hi), t_min_p - 1.0)
 
     bias_max = torch.where(scene.valid & ~scene.alpha, scene.bias, 0.0).amax()
-    return _packet_inputs(origins_p, dirs_p, t_min_p, t_max_k, scene, n,
-                          resident, lo, hi, bias_max=bias_max)
+    return _packet_inputs(origins_p, dirs_p, t_min_p, t_max_k, n, tables,
+                          bias_max=bias_max)
 
 
 def prepare_shadow(origins, dirs, t_min, t_max, scene) -> PacketInputs:
@@ -921,9 +1255,8 @@ def prepare_shadow(origins, dirs, t_min, t_max, scene) -> PacketInputs:
     origins_p, dirs_p, t_min_p, t_max_p = _pad_to_blocks(
         origins, dirs, t_min, t_max
     )
-    resident, lo, hi = _switch_boxes(scene)
-    return _packet_inputs(origins_p, dirs_p, t_min_p, t_max_p, scene, n,
-                          resident, lo, hi)
+    return _packet_inputs(origins_p, dirs_p, t_min_p, t_max_p, n,
+                          _scene_tables(scene))
 
 
 def make_opaque_fn(regroup=None):
@@ -936,10 +1269,12 @@ def make_opaque_fn(regroup=None):
                   chunk=0):
         del chunk
         p = prepare_opaque(origins, dirs, t_min, t_max, scene)
-        blocks = trace_opaque_mt_blocks if p.mt else trace_opaque_blocks
-        t, tri, u, v, bias = blocks(
-            p.rays8, p.clusters, p.visits, p.counts, p.entries, cull_backface,
-        )
+        args = (p.rays8, p.clusters, p.visits, p.counts, p.entries,
+                cull_backface)
+        if p.mt:
+            t, tri, u, v, bias = trace_opaque_mt_blocks(*args, packed=p.packed)
+        else:
+            t, tri, u, v, bias = trace_opaque_blocks(*args)
         n = p.n
         tri = tri[:n]
         t = torch.where(tri >= 0, t[:n], _BIG)
@@ -958,10 +1293,12 @@ def make_shadow_opaque_fn(regroup=None):
                   chunk=0):
         del chunk, cull_backface  # shadows never cull
         p = prepare_shadow(origins, dirs, t_min, t_max, scene)
-        blocks = trace_shadow_mt_blocks if p.mt else trace_shadow_blocks
-        blocked = blocks(
-            p.rays8, p.clusters, p.visits, p.counts, p.entries,
-        )[: p.n] > 0
+        args = (p.rays8, p.clusters, p.visits, p.counts, p.entries)
+        if p.mt:
+            blocked = trace_shadow_mt_blocks(*args, packed=p.packed)
+        else:
+            blocked = trace_shadow_blocks(*args)
+        blocked = blocked[: p.n] > 0
         n = p.n
         dev = origins.device
         t = torch.where(blocked, 0.0, _BIG)

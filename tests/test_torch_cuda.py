@@ -26,9 +26,8 @@ def card():
     return torch.device("cuda")
 
 
-def _scene(seed, device):
+def _scene(seed, device, t=512):
     rng = np.random.default_rng(seed)
-    t = 512
     v0 = rng.uniform(-10, 10, (3, t)).astype(np.float32)
     s = dict(
         v0=v0,
@@ -54,9 +53,24 @@ def _rays(seed, shadow, device, n=4096):
     return origins, dirs, t_min, t_max
 
 
-def _prepared(seed, shadow, device):
+def _prepared(seed, shadow, device, case="base"):
+    """One launch's inputs. case "long_lists": 64 clusters of 128 and
+    incoherent rays, so that a block's list is several work items long;
+    "mostly_dead": 9 rays in 10 have an empty interval."""
     prep = tc.prepare_shadow if shadow else tc.prepare_opaque
-    return prep(*_rays(seed, shadow, device), _scene(seed, device))
+    origins, dirs, t_min, t_max = _rays(seed, shadow, device)
+    if case == "mostly_dead":
+        dead = torch.from_numpy(
+            np.random.default_rng(seed).uniform(size=t_max.shape[0]) < 0.9)
+        t_max[dead.to(device)] = -1.0
+    scene = _scene(seed, device, t=8192 if case == "long_lists" else 512)
+    p = prep(origins, dirs, t_min, t_max, scene)
+    if case == "long_lists":
+        assert int(p.counts.max()) >= 3 * tc.SLICE_VISITS
+    return p
+
+
+MT_CASES = ["base", "long_lists", "mostly_dead"]
 
 
 @pytest.fixture
@@ -65,15 +79,15 @@ def streaming(monkeypatch):
     monkeypatch.setattr(tc, "RESIDENT_TABLE_BYTES", 0)
 
 
-def _counted(wrapper, args, counts, cluster_size):
+def _counted(wrapper, args, counts, cluster_size, **kw):
     """Launch a kernel's counting instantiation: (outputs, pairs tested,
     pairs past the first stage), after the checks every kernel's counts
     meet: no more visits than listed, no more pairs than the visits hold,
     and each stage passes no more pairs than the one before."""
     stats = torch.empty((counts.shape[0], tc.STATS_COLS), dtype=torch.int64,
                         device=counts.device)
-    out = wrapper(*args, stats=stats)
-    walked, tested, *stages = stats.cpu().T
+    out = wrapper(*args, stats=stats, **kw)
+    walked, tested, *stages = stats[:, :1 + tc.STAT_STAGES].cpu().T
     assert (walked <= counts.cpu()).all()
     assert (tested <= walked * tc.BLOCK_RAYS * cluster_size).all()
     for before, after in zip([tested] + stages, stages):
@@ -123,13 +137,14 @@ def test_k2_matches_plain_twin(card):
     assert stages[2].sum() == blocked.sum().item() and stages[3].sum() == 0
 
 
+@pytest.mark.parametrize("case", MT_CASES)
 @pytest.mark.parametrize("cull", [True, False])
-def test_k3_matches_plain_twin(card, streaming, cull):
-    p = _prepared(3, False, card)
-    assert p.mt
+def test_k3_matches_plain_twin(card, streaming, cull, case):
+    p = _prepared(3, False, card, case)
+    assert p.mt and p.packed is not None
     before = tc.launch_counts.opaque_mt_launches
     k1_before = tc.launch_counts.opaque_launches
-    t, tri, u, v, b = tc.trace_opaque_mt_blocks(*p[:5], cull)
+    t, tri, u, v, b = tc.trace_opaque_mt_blocks(*p[:5], cull, packed=p.packed)
     assert tc.launch_counts.opaque_mt_launches == before + 1
     assert tc.launch_counts.opaque_launches == k1_before
     t_p, tri_p, u_p, v_p, b_p = tc.trace_opaque_mt_plain(*p[:5], cull)
@@ -145,7 +160,8 @@ def test_k3_matches_plain_twin(card, streaming, cull):
         assert torch.quantile(err, 0.99).item() < 1e-3
     assert torch.equal(b[same], b_p[same])
     (t_s, tri_s, *_), tested, stages = _counted(
-        tc.trace_opaque_mt_blocks, (*p[:5], cull), p.counts, tc.CLUSTER_SIZE)
+        tc.trace_opaque_mt_blocks, (*p[:5], cull), p.counts, tc.CLUSTER_SIZE,
+        packed=p.packed)
     assert torch.equal(tri_s, tri) and torch.equal(t_s, t)
     # Without culling every active triangle's determinant passes.
     assert 0 < stages[0].sum() <= tested.sum()
@@ -155,21 +171,67 @@ def test_k3_matches_plain_twin(card, streaming, cull):
     assert stages[2].sum() < stages[0].sum()
 
 
-def test_k4_matches_plain_twin(card, streaming):
-    p = _prepared(4, True, card)
+@pytest.mark.parametrize("case", MT_CASES)
+def test_k4_matches_plain_twin(card, streaming, case):
+    p = _prepared(4, True, card, case)
     assert p.mt
     before = tc.launch_counts.shadow_mt_launches
-    blocked = tc.trace_shadow_mt_blocks(*p[:5])
+    blocked = tc.trace_shadow_mt_blocks(*p[:5], packed=p.packed)
     assert tc.launch_counts.shadow_mt_launches == before + 1
     want = tc.trace_shadow_mt_plain(*p[:5])
     torch.cuda.synchronize()
     assert (blocked == want).float().mean().item() >= 0.999
     assert 0 < blocked.sum().item() < blocked.numel()
     blocked_s, _, stages = _counted(tc.trace_shadow_mt_blocks, p[:5],
-                                    p.counts, tc.CLUSTER_SIZE)
+                                    p.counts, tc.CLUSTER_SIZE,
+                                    packed=p.packed)
     assert torch.equal(blocked_s, blocked)
-    # A ray stops at its first blocker: one hit for each blocked ray.
-    assert stages[3].sum() == blocked.sum().item()
+    # Every blocked ray was hit at least once: a ray's pairs are spread
+    # over work items and warp tasks, and each stops at its own first
+    # blocker. It is tested no further: a blocked ray enters no later
+    # visit of the item, so per block the hits are at most blocked rays
+    # x the block's items x the tasks that share one ray's cluster.
+    per_block = blocked.reshape(-1, tc.BLOCK_RAYS).sum(dim=1).cpu()
+    items = -(-p.counts.cpu() // tc.SLICE_VISITS)
+    tasks = tc.CLUSTER_SIZE // tc.TASK_TRIS_FEW
+    assert (stages[3] >= per_block).all()
+    assert (stages[3] <= per_block * items * tasks).all()
+    with pytest.raises(ValueError, match="packed"):
+        tc.trace_shadow_mt_blocks(*p[:5])
+
+
+@pytest.mark.parametrize("case", MT_CASES)
+def test_k3_order_independent(card, streaming, case):
+    """K3's outputs are the same bits whatever order its work items run
+    in: launched twice, and with the item table reversed; K4's flags
+    too. The card's own item table is build_work_items' table."""
+    p = _prepared(5, False, card, case)
+    n_cols = p.visits.shape[1]
+    items, n_items = tc.work_items_on_card(p.counts, n_cols)
+    twin, twin_n = tc.build_work_items(p.counts, n_cols)
+    n = int(n_items)
+    assert n == int(twin_n) > 0 and torch.equal(items[:n], twin[:n])
+    block, start = tc.work_item_slices(items, n_items, p.counts.shape[0])
+    assert int((start < p.counts[block]).sum()) == n
+    backwards = items.clone()
+    backwards[:n] = items[:n].flip(0)
+    first = tc.trace_opaque_mt_blocks(*p[:5], True, packed=p.packed)
+    for again in (
+        tc.trace_opaque_mt_blocks(*p[:5], True, packed=p.packed),
+        tc.trace_opaque_mt_blocks(*p[:5], True, packed=p.packed,
+                                  items=(backwards, n_items)),
+    ):
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
+    assert (first[1] >= 0).any()
+    q = _prepared(6, True, card, case)
+    items, n_items = tc.work_items_on_card(q.counts, q.visits.shape[1])
+    n = int(n_items)
+    backwards = items.clone()
+    backwards[:n] = items[:n].flip(0)
+    flags = tc.trace_shadow_mt_blocks(*q[:5], packed=q.packed)
+    assert torch.equal(flags, tc.trace_shadow_mt_blocks(
+        *q[:5], packed=q.packed, items=(backwards, n_items)))
 
 
 def test_regroup_parity_on_card(card, monkeypatch):
