@@ -9,27 +9,31 @@ Phases (each prints one JSON line; any failure exits non-zero before the
 result line):
   1. card: nvidia-smi's name and power limit (verbatim), TF32 off;
   2. build: nvcc builds every source under csrc/ (packet_tracer.cu: K1/K2,
-     mt_tracer.cu: K3/K4), build seconds;
+     mt_tracer.cu: K3/K4, both over the walk of packet_walk.cuh), build
+     seconds;
   3. K1 (closest hit) against its plain twin on the castle 640x480
      frame's own primary-ray batch: tri agreement, hit/miss flips,
      t relative and u/v absolute error p99, bias equality, kernel/plain
      ms, and the bound from the pairs that reached each stage of the
      pair test in this launch;
   4. K2 (occlusion) the same way on the frame's batched shadow launch;
+     for both (and for every K1-K4 launch below) also the work items,
+     the CTAs of the persistent grid, the cycles of the longest item and
+     block, and order_independent: two production launches, and one with
+     the item table reversed, give equal outputs bit for bit;
   5. main path: 10 castle frames through Device.draw(), with the
      launch counters set to 0 just before and read just after;
   6. sample scene 320x240 rendered on the card and on the CPU, SSIM;
+  6b. K1 and K2 the same way on the regrouped bounce launches of a
+     castle GI 1280x720 frame (the ray mix of bench config 3: incoherent
+     rays, long visit lists), the plain twins run once;
   7. K3 (closest hit, 128-triangle clusters) against its plain twin on
      the primary launch of a large-castle 1280x720 GI frame, K1 on the
      same rays and scene for comparison, and K3 against its twin on the
      frame's regrouped bounce launch (incoherent rays, long visit
      lists: the frame's dearest K3 launch);
   8. K4 (occlusion) the same way on that frame's largest shadow launch,
-     with K2 on the same rays, and on its bounce-shadow launch; for each
-     of the four K3/K4 launches also the work items, the CTAs of the
-     persistent grid, the cycles of the longest item and block, and
-     order_independent: two production launches, and one with the item
-     table reversed, give equal outputs bit for bit;
+     with K2 on the same rays, and on its bounce-shadow launch;
   9. large-scene GI path: 10 frames of the large castle (32,768-triangle
      bucket, beyond the size switch) at 1280x720 with di 1, gi 1 and the
      denoiser (which turns GI reprojection on) through Device.draw();
@@ -56,9 +60,10 @@ FP32_FLOPS_PER_S = 67e12
 # instantiations report, per launch, the pairs that live, unblocked rays
 # tested and the pairs that passed stages 1 to 4 (csrc/work_stats.cuh).
 # FLOPS_<kernel>[k] is the cost of the stage that a pair reaches by
-# passing k stages. K3/K4 test only the rays that enter a cluster's box,
-# so their counts, and with them their bounds, are lower than those of
-# the same launches before that cull: PREV_MS holds the earlier times.
+# passing k stages. The kernels test only the rays that enter a
+# cluster's box, so their counts, and with them their bounds, are lower
+# than those of the same launches before that cull: PREV_MS holds the
+# earlier times.
 # K1 (Woop): the keep test r_z = W[2] d (3 products, 2 sums); then
 # s_z (6) and t = -s_z / r_z (1); then, t in range, s_x (6), r_x (5),
 # u = s_x + t r_x (2); then, u >= 0, s_y (6), r_y (5), v (2), u + v (1);
@@ -75,16 +80,21 @@ FLOPS_K2 = (5, 10, 29, 0, 0)
 # a hit pays, in K3, the key t - bias (1).
 FLOPS_K3 = (14, 10, 16, 6, 1)
 FLOPS_K4 = (14, 10, 16, 6, 0)
-# K3/K4 before their redesign (one CTA per block, one ray per thread, no
-# cull below the block): the same four launches on an NVIDIA H100 80GB
-# HBM3 at 700 W, ms, with the bound each was then held to. Recorded
-# constants, not this run's readings: they are printed on the k3/k4 phase
-# lines only, never on the kernels line.
-PREV_MS = {"k3": 1.349, "k3_bounce": 12.319, "k4": 6.339, "k4_bounce": 3.995}
-PREV_BOUND_MS = {"k3": 0.2141, "k3_bounce": 0.8123, "k4": 0.8542,
-                 "k4_bounce": 0.0880}
+# The kernels before their redesign (one CTA per block, one ray per
+# thread, no cull below the block): the same launches on an NVIDIA H100
+# 80GB HBM3 at 700 W, ms, with the bound each was then held to. K1/K2's
+# bounce launches: the tree before the redesign, timed and bounded on
+# the same launches by utils/kernel_times.py. Recorded constants, not
+# this run's readings: they are printed on the phase lines only, never
+# on the kernels line.
+PREV_MS = {"k1": 0.359, "k2": 1.311, "k1_bounce": 1.508, "k2_bounce": 0.651,
+           "k3": 1.349, "k3_bounce": 12.319, "k4": 6.339, "k4_bounce": 3.995}
+PREV_BOUND_MS = {"k1": 0.0345, "k2": 0.1411, "k1_bounce": 0.0878,
+                 "k2_bounce": 0.0253, "k3": 0.2141, "k3_bounce": 0.8123,
+                 "k4": 0.8542, "k4_bounce": 0.0880}
 CASTLE_W, CASTLE_H = 640, 480
 MAIN_FRAMES = 10
+GI_W, GI_H = 1280, 720
 LARGE_W, LARGE_H = 1280, 720
 LARGE_TERRAIN_N = 128
 LARGE_FRAMES = 10
@@ -101,6 +111,19 @@ def check(ok, what):
 
 def emit(obj):
     print(json.dumps(obj), flush=True)
+
+
+def timed(fn):
+    """(fn(), its device time in ms): one run between CUDA events."""
+    import torch
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def time_ms(fn, reps, warmup=2):
@@ -179,10 +202,10 @@ def counted_work(stats, flops_by_stage):
 
 
 def work_item_fields(tag, wrapper, args, kw, shadow):
-    """K3/K4 only: the launch's work items and grid, and whether its
-    outputs depend on the order the items ran in (they must not): two
-    production launches, and one with the item table reversed, must give
-    equal outputs bit for bit."""
+    """The launch's work items and grid, and whether its outputs depend
+    on the order the items ran in (they must not): two production
+    launches, and one with the item table reversed, must give equal
+    outputs bit for bit."""
     import torch
     from rt64tpu_torch.ops import tracer_cuda as tc
 
@@ -201,8 +224,9 @@ def work_item_fields(tag, wrapper, args, kw, shadow):
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) and torch.equal(a, c)
                for a, b, c in zip(first, again, turned))
+    woop = args[1].shape[2] == tc.K_CS
     return dict(work_items=n, slice_visits=tc.SLICE_VISITS,
-                ctas_launched=min(tc.mt_grid(shadow), items.shape[0]),
+                ctas_launched=min(tc.walk_grid(woop, shadow), items.shape[0]),
                 order_independent=same)
 
 
@@ -215,15 +239,17 @@ def largest(calls):
 def closest_hit_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
     """Hold a closest-hit kernel (K1 or K3) against its plain twin on one
     recorded launch (with the keyword arguments the frame gave it), time
-    both, and bound it by the counted work."""
+    both, and bound it by the counted work. plain_reps 0: the twin runs
+    once, and that run is its time."""
     import torch
     from rt64tpu_torch.ops import tracer_cuda as tc
+    from rt64tpu_torch.utils.kernel_times import batched_ms
 
     (rays8, clusters, visits, counts, entries, cull), kw = call
     n = rays8.shape[1]
     args = (rays8, clusters, visits, counts, entries, cull)
     t_k, tri_k, u_k, v_k, b_k = wrapper(*args, **kw)
-    t_p, tri_p, u_p, v_p, b_p = twin(*args)
+    (t_p, tri_p, u_p, v_p, b_p), plain_once = timed(lambda: twin(*args))
     # The counting instantiation: the work this run's data needs.
     stats = torch.empty((counts.shape[0], tc.STATS_COLS), dtype=torch.int64,
                         device=rays8.device)
@@ -244,11 +270,12 @@ def closest_hit_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
         (t_s, t_k), (tri_s, tri_k), (u_s, u_k), (v_s, v_k), (b_s, b_k)))
     del t_p, tri_p, u_p, v_p, b_p, t_s, tri_s, u_s, v_s, b_s
     ms = time_ms(lambda: wrapper(*args, **kw), reps=25)
-    plain_ms = time_ms(lambda: twin(*args), reps=plain_reps, warmup=1)
+    ms_batched = batched_ms(lambda: wrapper(*args, **kw))
+    plain_ms = (time_ms(lambda: twin(*args), reps=plain_reps, warmup=1)
+                if plain_reps else plain_once)
     work = counted_work(stats, flops_by_stage)
-    if tag in PREV_MS:
-        work.update(work_item_fields(tag, wrapper, args, kw, shadow=False),
-                    prev_ms=PREV_MS[tag], prev_bound_ms=PREV_BOUND_MS[tag])
+    work.update(work_item_fields(tag, wrapper, args, kw, shadow=False),
+                prev_ms=PREV_MS[tag], prev_bound_ms=PREV_BOUND_MS[tag])
     n_bytes = sum(a.numel() * a.element_size()
                   for a in (rays8, clusters, visits, counts, entries))
     n_bytes += 5 * 4 * n
@@ -261,8 +288,8 @@ def closest_hit_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
                max_abs_err=max(errs.values()), max_abs_err_by_output=errs,
                counting_launch_same=stats_same,
                visits_listed=int(counts.sum()), **work,
-               bytes=n_bytes, ms=ms, plain_ms=plain_ms,
-               bound_ms=bms, bound_by=by)
+               bytes=n_bytes, ms=ms, ms_batched=ms_batched,
+               plain_ms=plain_ms, bound_ms=bms, bound_by=by)
     emit(row)
     check(agree >= 0.999, f"{tag} tri agreement {agree} < 0.999")
     check(flips < 0.001, f"{tag} hit/miss flips {flips} >= 0.001")
@@ -283,15 +310,17 @@ def quantile(x, q):
 
 def occlusion_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
     """Hold an occlusion kernel (K2 or K4) against its plain twin on one
-    recorded launch, time both, and bound it by the counted work."""
+    recorded launch, time both, and bound it by the counted work
+    (plain_reps: as for closest_hit_phase)."""
     import torch
     from rt64tpu_torch.ops import tracer_cuda as tc
+    from rt64tpu_torch.utils.kernel_times import batched_ms
 
     (rays8, clusters, visits, counts, entries), kw = call
     n = rays8.shape[1]
     args = (rays8, clusters, visits, counts, entries)
     bl_k = wrapper(*args, **kw)
-    bl_p = twin(*args)
+    bl_p, plain_once = timed(lambda: twin(*args))
     stats = torch.empty((counts.shape[0], tc.STATS_COLS), dtype=torch.int64,
                         device=rays8.device)
     bl_s = wrapper(*args, stats=stats, **kw)
@@ -300,11 +329,12 @@ def occlusion_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
     max_abs = (bl_k - bl_p).abs().max().item()
     stats_same = torch.equal(bl_s, bl_k)
     ms = time_ms(lambda: wrapper(*args, **kw), reps=25)
-    plain_ms = time_ms(lambda: twin(*args), reps=plain_reps, warmup=1)
+    ms_batched = batched_ms(lambda: wrapper(*args, **kw))
+    plain_ms = (time_ms(lambda: twin(*args), reps=plain_reps, warmup=1)
+                if plain_reps else plain_once)
     work = counted_work(stats, flops_by_stage)
-    if tag in PREV_MS:
-        work.update(work_item_fields(tag, wrapper, args, kw, shadow=True),
-                    prev_ms=PREV_MS[tag], prev_bound_ms=PREV_BOUND_MS[tag])
+    work.update(work_item_fields(tag, wrapper, args, kw, shadow=True),
+                prev_ms=PREV_MS[tag], prev_bound_ms=PREV_BOUND_MS[tag])
     n_bytes = sum(a.numel() * a.element_size() for a in args)
     n_bytes += 4 * n
     bms, by = bound_ms(n_bytes, work["flops"])
@@ -315,8 +345,9 @@ def occlusion_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
                blocked_agreement=agree, blocked_k=int(bl_k.sum()),
                blocked_plain=int(bl_p.sum()), counting_launch_same=stats_same,
                visits_listed=int(counts.sum()), **work,
-               bytes=n_bytes, ms=ms, plain_ms=plain_ms, bound_ms=bms,
-               bound_by=by, max_abs_err=max_abs)
+               bytes=n_bytes, ms=ms, ms_batched=ms_batched,
+               plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+               max_abs_err=max_abs)
     emit(row)
     check(agree >= 0.999, f"{tag} blocked agreement {agree} < 0.999")
     check(stats_same, f"{tag}'s counting launch gave another result")
@@ -325,18 +356,41 @@ def occlusion_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
     return row
 
 
-def phase_k1(call):
+def phase_k1(tag, call, plain_reps):
     from rt64tpu_torch.ops import tracer_cuda as tc
 
-    return closest_hit_phase("k1", call, tc.trace_opaque_blocks,
-                             tc.trace_opaque_plain, FLOPS_K1, plain_reps=5)
+    return closest_hit_phase(tag, call, tc.trace_opaque_blocks,
+                             tc.trace_opaque_plain, FLOPS_K1, plain_reps)
 
 
-def phase_k2(call):
+def phase_k2(tag, call, plain_reps):
     from rt64tpu_torch.ops import tracer_cuda as tc
 
-    return occlusion_phase("k2", call, tc.trace_shadow_blocks,
-                           tc.trace_shadow_plain, FLOPS_K2, plain_reps=5)
+    return occlusion_phase(tag, call, tc.trace_shadow_blocks,
+                           tc.trace_shadow_plain, FLOPS_K2, plain_reps)
+
+
+def phase_k1_k2_bounce():
+    """K1 and K2 on the regrouped bounce launches of a castle GI
+    1280x720 frame (the frame's last closest-hit and last occlusion
+    launches), after one settling draw."""
+    import torch
+    from rt64tpu_torch.utils.castle_scene import build_castle_scene
+
+    dev, _, view = build_castle_scene(GI_W, GI_H, di_samples=1,
+                                      gi_samples=1, denoiser=True)
+    view.max_reflections = 0
+    dev.draw()  # settles the alpha boost ladder, fills the history
+    seen = capture_launches(dev.draw)
+    del dev, view
+    calls = seen["trace_opaque_blocks"], seen["trace_shadow_blocks"]
+    check(len(calls[0]) >= 2 and len(calls[1]) >= 2,
+          f"the castle GI frame launched K1/K2 {[len(c) for c in calls]} times")
+    k1 = phase_k1("k1_bounce", calls[0][-1], plain_reps=0)
+    k2 = phase_k2("k2_bounce", calls[1][-1], plain_reps=0)
+    del seen, calls
+    torch.cuda.empty_cache()
+    return k1, k2
 
 
 def same_rays_other_table(tag, prep_call, prep, wrapper, extra=()):
@@ -356,7 +410,7 @@ def same_rays_other_table(tag, prep_call, prep, wrapper, extra=()):
         tc.RESIDENT_TABLE_BYTES = table_bytes
     check(not p.mt, f"{tag}: the prep did not build the Woop table")
     call = lambda: wrapper(p.rays8, p.clusters, p.visits, p.counts,
-                           p.entries, *extra)
+                           p.entries, *extra, packed=p.packed)
     out = call()
     torch.cuda.synchronize()
     ms = time_ms(call, reps=25)
@@ -616,8 +670,8 @@ def run():
     seen = capture_launches(dev.draw)
     check(seen["trace_opaque_blocks"] and seen["trace_shadow_blocks"],
           "the castle frame launched no K1 or K2")
-    k1 = phase_k1(seen["trace_opaque_blocks"][-1])
-    k2 = phase_k2(seen["trace_shadow_blocks"][-1])
+    k1 = phase_k1("k1", seen["trace_opaque_blocks"][-1], plain_reps=5)
+    k2 = phase_k2("k2", seen["trace_shadow_blocks"][-1], plain_reps=5)
     del dev, view, seen
     torch.cuda.empty_cache()
 
@@ -626,6 +680,9 @@ def run():
 
     # 6. sample scene, card vs CPU
     phase_sample()
+
+    # 6b. K1 and K2 on a castle GI frame's bounce launches
+    k1["bounce"], k2["bounce"] = phase_k1_k2_bounce()
 
     # 7-8. K3 and K4 on a large-castle GI frame's own launches
     dev, view = build_large_castle()
@@ -645,23 +702,23 @@ def run():
     phase_gi_small()
 
     measured = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
-    # K3 and K4 also carry their bounce launch's numbers, as bounce_<key>.
-    # Every number of this line but bound_ms was measured in this run (the
-    # earlier design's times stand on the k3/k4 phase lines, as prev_ms).
+    # Every kernel also carries its bounce launch's numbers, as
+    # bounce_<key>. Every number of this line but bound_ms was measured in
+    # this run (the earlier design's times stand on the phase lines, as
+    # prev_ms).
     kernel = lambda name, src, line, launches, row: dict(
         name=name, route="cuda", source=f"rt64tpu_torch/csrc/{src}",
         replaces=f"rt64tpu/ops/tracer_pallas.py:{line}", launches=launches,
         **{k: row[k] for k in measured}, library_ms=None,
-        **{f"bounce_{k}": row["bounce"][k] for k in measured
-           if "bounce" in row})
+        **{f"bounce_{k}": row["bounce"][k] for k in measured})
     emit({"kernels": [
-        kernel("trace_opaque_kernel (K1)", "packet_tracer.cu", 764,
-               main["opaque_launches"], k1),
-        kernel("trace_shadow_kernel (K2)", "packet_tracer.cu", 981,
-               main["shadow_launches"], k2),
-        kernel("trace_opaque_mt_kernel (K3)", "mt_tracer.cu", 572,
+        kernel("trace_opaque_walk<WoopClusters> (K1)", "packet_tracer.cu",
+               764, main["opaque_launches"], k1),
+        kernel("trace_shadow_walk<WoopClusters> (K2)", "packet_tracer.cu",
+               981, main["shadow_launches"], k2),
+        kernel("trace_opaque_walk<MtClusters> (K3)", "mt_tracer.cu", 572,
                large["opaque_mt_launches"], k3),
-        kernel("trace_shadow_mt_kernel (K4)", "mt_tracer.cu", 1303,
+        kernel("trace_shadow_walk<MtClusters> (K4)", "mt_tracer.cu", 1303,
                large["shadow_mt_launches"], k4),
     ]})
     emit({"ok": True, "device": {"platform": "gpu",

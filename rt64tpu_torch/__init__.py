@@ -3,7 +3,9 @@
 A second package beside the JAX one (which stays the reference): the
 same RT64 object model, scene packing and frame graph as plain torch on
 explicit devices, with the packet-traversal kernels written by hand in
-CUDA C++ for Hopper (``csrc/packet_tracer.cu``). A Device renders on the
+CUDA C++ for Hopper (``csrc/``: one walk, ``packet_walk.cuh``, over the
+Woop table in ``packet_tracer.cu`` and the Moller-Trumbore table in
+``mt_tracer.cu``). A Device renders on the
 CUDA card unless the caller passes ``device="cpu"``; CPU tensors take
 each kernel's plain-torch twin.
 

@@ -1,14 +1,15 @@
 // Work counters of the kernels' STATS (counting) instantiations, shared
-// by packet_tracer.cu (K1/K2) and mt_tracer.cu (K3/K4).
+// by the walk of packet_walk.cuh and its two layouts, packet_tracer.cu
+// (K1/K2) and mt_tracer.cu (K3/K4).
 //
 // A STATS launch writes STATS_COLS unsigned 64-bit counters per ray
 // block:
 //   [0] visits walked (clusters staged for the block),
 //   [1] (ray, triangle) pairs tested,
 //   [2..5] pairs past stage 1, 2, 3, 4 of the pair test,
-//   [6] clock64() cycles the block's work held a CTA (K3/K4: the sum over
-//       the block's work items; K1/K2 leave it 0),
-//   [7] the longest single work item of the block, in cycles (K3/K4).
+//   [6] clock64() cycles the block's work held a CTA: the sum over the
+//       block's work items,
+//   [7] the longest single work item of the block, in cycles.
 // The stages are the early returns of the pair test, in order:
 //   K1: keep (r_z), t in range, u >= 0, v and u + v (a hit);
 //   K2: keep (r_z), t in range, u with v and u + v (a hit); stage 4

@@ -11,10 +11,12 @@ packet-granular:
      its rays might hit.
   3. A kernel walks each block's list: K1 (closest opaque hit) and K2
      (any-hit occlusion) over the 64-triangle Woop table, in
-     ``rt64tpu_torch/csrc/packet_tracer.cu``, one CTA per block; K3 and
-     K4 (the same two functions) over the 128-triangle Moller-Trumbore
-     table, in ``rt64tpu_torch/csrc/mt_tracer.cu``, as work items
-     (block, slice of its list) on a persistent grid (build_work_items).
+     ``rt64tpu_torch/csrc/packet_tracer.cu``; K3 and K4 (the same two
+     functions) over the 128-triangle Moller-Trumbore table, in
+     ``rt64tpu_torch/csrc/mt_tracer.cu``. All four run one walk
+     (``csrc/packet_walk.cuh``): work items (block, slice of its list) on
+     a persistent grid (build_work_items), each ray culled per cluster by
+     the cluster's box, dense warp tasks, an order-free merge.
 
 Each kernel has a plain PyTorch twin that takes the same inputs and
 computes the same function (trace_opaque_plain, trace_shadow_plain,
@@ -40,7 +42,9 @@ within a chunk, earlier chunk across chunks).
 Cluster tables, both with the all-zero pad cluster `nc` last:
   Woop, K1/K2: (nc + 1, 14, 64) f32, one SoA block per 64-triangle
     cluster, plain f32 (no hi/lo split: the kernels run on CUDA cores,
-    not on a bf16-rounding matrix unit);
+    not on a bf16-rounding matrix unit). The kernels read its repacked
+    form (pack_woop_clusters): four 16-byte operands per triangle and
+    the cluster's box, (nc + 1, WP_FLOAT4S, 4) f32;
   Moller-Trumbore, K3/K4: (nc + 1, 12, 128) f32, one SoA block per
     128-triangle cluster: v0, e1, e2, depth bias, active, no_cull. The
     kernels read its repacked form (pack_mt_clusters): 16-byte operands
@@ -75,41 +79,42 @@ _BIG = tracer._BIG
 
 K_CS = 64  # triangles per Woop cluster (K1/K2)
 CLUSTER_SIZE = 128  # triangles per Moller-Trumbore cluster (K3/K4)
-BLOCK_RAYS = 512  # rays per CTA and per visit list
+BLOCK_RAYS = 512  # rays per visit list (and per CTA of the walk)
 # Clusters per level-1 group box at CLUSTER_SIZE; the K_CS path takes
 # twice as many, so its group boxes keep the same physical extent.
 GROUP_CLUSTERS = 8
-VISIT_UNROLL = 4  # K1 visits per early-out check (packet_tracer.cu)
-SHADOW_UNROLL = 8  # K2 visits per early-out check (packet_tracer.cu)
 # Columns of a kernel's optional work-count buffer (csrc/work_stats.cuh):
 # visits walked, pairs tested, pairs past stages 1-4 of the pair test,
-# then (K3/K4 only) the cycles the block's work items held a CTA and the
-# longest single item's cycles.
+# then the cycles the block's work items held a CTA and the longest
+# single item's cycles.
 STATS_COLS = 8
 STAT_STAGES = 5  # columns 1..5: pairs tested, then past each stage
 STAT_CYCLES = 6
 STAT_ITEM_CYCLES = 7
-# K3/K4 (csrc/mt_tracer.cu): visits per work item, float4s of one
-# cluster of the kernel-side table (3 x 128 triangle operands + the box),
-# and the triangles of the smallest warp task (a ray that enters a
-# cluster is tested by at most CLUSTER_SIZE // TASK_TRIS_FEW tasks).
+# The walk (csrc/packet_walk.cuh): visits per work item, and the
+# triangles of the smallest warp task (a ray that enters a cluster is
+# tested by at most triangles // TASK_TRIS_FEW tasks). Float4s of one
+# cluster of the kernel-side tables: K3/K4 3 x 128 triangle operands +
+# the box (csrc/mt_tracer.cu), K1/K2 4 x 64 + the box
+# (csrc/packet_tracer.cu).
 SLICE_VISITS = 16
-PK_FLOAT4S = 3 * CLUSTER_SIZE + 2
 TASK_TRIS_FEW = 8
+PK_FLOAT4S = 3 * CLUSTER_SIZE + 2
+WP_FLOAT4S = 4 * K_CS + 2
 # The size switch (see the module docstring): the byte size of the JAX
 # package's resident table, (T // 64) clusters of 13 x 192 f32, against
 # its budget.
 RESIDENT_TABLE_BYTES = 4 * 1024 * 1024
 _RESIDENT_CLUSTER_BYTES = 13 * 192 * 4
 
-# Woop cluster table rows (see packet_tracer.cu).
+# Woop cluster table rows (build_cluster_mats).
 C_W = 0  # 9: W[g][i] at row g*3+i
 C_TR = 9  # 3: -W v0
 C_THR = 12  # signed keep threshold
 C_BIAS = 13  # depth bias
 C_ROWS = 14
 
-# Moller-Trumbore cluster table rows (see packet_tracer.cu).
+# Moller-Trumbore cluster table rows (build_cluster_data).
 M_V0 = 0  # 3
 M_E1 = 3  # 3
 M_E2 = 6  # 3
@@ -143,6 +148,7 @@ launch_counts = LaunchCounts()
 # ---------------------------------------------------------------------------
 # Cluster data (plain torch, every frame)
 # ---------------------------------------------------------------------------
+
 
 def clusters_resident(num_triangles: int) -> bool:
     """The size switch: True when a scene of this triangle bucket takes
@@ -239,6 +245,7 @@ def build_cluster_mats(scene: tracer.TraceScene):
 # Visit lists (plain torch, per launch)
 # ---------------------------------------------------------------------------
 
+
 def _slab_per_ray_live(origins, dirs, t_min, t_max, lo, hi):
     """Per-ray slab test against M boxes: (hit (N, M), entry (N, M)).
     Dead rays (empty [t_min, t_max]) never vote."""
@@ -329,6 +336,7 @@ def block_visit_lists(origins, dirs, t_min, t_max, aabb_lo, aabb_hi,
 # Kernel library: built from csrc/ with nvcc at first use
 # ---------------------------------------------------------------------------
 
+
 class KernelLibrary(NamedTuple):
     lib: ctypes.CDLL
     path: str
@@ -408,26 +416,25 @@ def kernel_library() -> KernelLibrary:
 # The C functions of the library: a pointer or a stream passed without
 # c_void_p would be cut to 32 bits.
 _P, _I = ctypes.c_void_p, ctypes.c_int
+# rays8, blocks, table, n_tab, visits, counts, entries, n_cols, cull,
+# items, n_items, max_items, build_items, counter, packed, t, tri, u, v,
+# bias, stats, stream
+_OPAQUE_ARGS = [_P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P, _I, _I, _P, _P,
+                _P, _P, _P, _P, _P, _P, _P]
+# ... entries, n_cols, items, n_items, max_items, build_items, counter,
+# blocked, stats, stream
+_SHADOW_ARGS = [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I, _P, _P, _P,
+                _P]
 C_SIGNATURES = {
-    # rays8, blocks, clusters, n_tab, visits, counts, entries, n_cols,
-    # cull, t, tri, u, v, bias, stats, stream
-    "rt64_trace_opaque": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P, _P,
-                          _P, _P, _P, _P],
-    # ... entries, n_cols, blocked, stats, stream
-    "rt64_trace_shadow": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _P],
-    # rays8, blocks, table, n_tab, visits, counts, entries, n_cols, cull,
-    # items, n_items, max_items, build_items, counter, packed, t, tri, u,
-    # v, bias, stats, stream
-    "rt64_trace_opaque_mt": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _P, _P, _I,
-                             _I, _P, _P, _P, _P, _P, _P, _P, _P, _P],
-    # ... entries, n_cols, items, n_items, max_items, build_items,
-    # counter, blocked, stats, stream
-    "rt64_trace_shadow_mt": [_P, _I, _P, _I, _P, _P, _P, _I, _P, _P, _I, _I,
-                             _P, _P, _P, _P],
+    "rt64_trace_opaque": _OPAQUE_ARGS,  # K1
+    "rt64_trace_shadow": _SHADOW_ARGS,  # K2
+    "rt64_trace_opaque_mt": _OPAQUE_ARGS,  # K3
+    "rt64_trace_shadow_mt": _SHADOW_ARGS,  # K4
     # shadow, stats
+    "rt64_woop_grid": [_I, _I],
     "rt64_mt_grid": [_I, _I],
     # counts, blocks, max_items, items, n_items, stream
-    "rt64_mt_items": [_P, _I, _I, _P, _P, _P],
+    "rt64_work_items": [_P, _I, _I, _P, _P, _P],
 }
 
 
@@ -459,7 +466,7 @@ def _check_inputs(rays8, clusters, visits, counts, entries,
             raise ValueError(f"{name} on {t.device}, rays8 on {dev}")
         if t.dtype != dtype:
             raise ValueError(f"{name} must be {dtype}, got {t.dtype}")
-        if tuple(t.shape) != shape:
+        if t.shape != shape:
             raise ValueError(f"{name} must have shape {shape}, got {tuple(t.shape)}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
@@ -488,56 +495,315 @@ def _raise_on(err: int, name: str):
 
 
 # ---------------------------------------------------------------------------
-# K1: closest opaque hit
+# The walk's launches (K1-K4, csrc/packet_walk.cuh)
 # ---------------------------------------------------------------------------
 
-def trace_opaque_blocks(rays8, clusters, visits, counts, entries,
-                        cull_backface: bool, stats=None):
-    """Closest opaque hit per ray over per-block visit lists.
 
-    rays8 (8, B*512) f32; clusters (nc+1, 14, 64) f32; visits (B, nc)
-    int32; counts (B,) int32; entries (B, nc) f32. Returns (t biased
-    key, tri int32 (-1 miss), u, v, bias), each (B*512,); a miss reports
-    t = t_max + 1. stats: optional (B, STATS_COLS) int64 tensor on the
-    card that receives, per block, the visits walked, the (ray, triangle)
-    pairs tested and those that passed each early return of the pair
-    test in turn: the keep test, t in range, u, and v with u + v (kernel
-    only; it selects the counting instantiation of K1).
+def build_work_items(counts, n_cols: int):
+    """The work items of a walk launch (K1-K4): every block's visit list
+    cut into slices of at most SLICE_VISITS visits.
 
-    CPU tensors take trace_opaque_plain; CUDA tensors launch K1."""
-    n_blocks, n_cols = _check_inputs(rays8, clusters, visits, counts, entries)
-    if rays8.device.type == "cpu":
-        return trace_opaque_plain(rays8, clusters, visits, counts, entries,
-                                  cull_backface)
-    out = _launch_opaque(rays8, clusters, visits, counts, entries, n_blocks,
-                         n_cols, cull_backface, stats)
-    launch_counts.opaque_launches += 1
-    return out
+    Returns (items (B * ceil(n_cols / SLICE_VISITS),) int32, n_items
+    (1,) int32). Only the first n_items entries are items. An item is
+    the code slice * B + block: it stands for visits
+    [slice * SLICE_VISITS, (slice + 1) * SLICE_VISITS) of that block's
+    list (work_item_slices decodes). Items come slice-major: every
+    block's first slice before any second slice, so a block's front
+    slices start before its back slices and have usually lowered the
+    block's bound by then, and the last items to start are single slices
+    of the longest lists. This is the twin of the table that the
+    launches' prologue_kernel builds (csrc/packet_walk.cuh), which
+    builds the same table on the card in one launch; nothing is read
+    back here either."""
+    n_blocks = counts.shape[0]
+    dev = counts.device
+    max_slices = -(-n_cols // SLICE_VISITS)
+    levels = torch.arange(max_slices, device=dev, dtype=torch.int32)[:, None]
+    codes = torch.arange(max_slices * n_blocks, device=dev, dtype=torch.int32)
+    slices = (counts + (SLICE_VISITS - 1)) // SLICE_VISITS  # (B,)
+    valid = (levels < slices[None, :]).reshape(-1)  # slice-major grid
+    # Stable compaction: an item's place is the number of items before it.
+    place = torch.cumsum(valid, dim=0)
+    dest = torch.where(valid, place - 1, codes.shape[0])
+    items = torch.empty(codes.shape[0] + 1, dtype=torch.int32, device=dev)
+    items.scatter_(0, dest, codes)
+    return items[:-1], place[-1:].to(torch.int32)
 
 
-def _launch_opaque(rays8, clusters, visits, counts, entries, n_blocks, n_cols,
-                   cull_backface, stats):
-    """Launch K1 on the current stream."""
-    if rays8.device.type != "cuda":
-        raise ValueError(f"unsupported device {rays8.device}")
+def work_item_slices(items, n_items, n_blocks: int):
+    """Decode build_work_items' codes: (block, first visit) of each of
+    the n_items items, two (n_items,) int64 tensors (reads n_items back)."""
+    codes = items[: int(n_items)].to(torch.int64)
+    return codes % n_blocks, (codes // n_blocks) * SLICE_VISITS
+
+
+def pack_key(key, tid):
+    """Torch twin of K1's and K3's packed merge word (packet_walk.cuh
+    pack_hit): the biased key's float bits mapped to an order-preserving
+    unsigned (all bits of a negative flipped, the sign bit of a
+    non-negative set, -0.0 made +0.0 first) above ~tid. Returned as
+    int64 with the top bit flipped, so that signed order here equals the
+    kernel's unsigned order: the minimum is the smallest key and, among
+    equal keys, the largest id; tid -1 (a miss) wins every tie."""
+    key = torch.where(key == 0.0, torch.zeros_like(key), key)
+    b = key.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    k = torch.where((b & 0x80000000) != 0, ~b & 0xFFFFFFFF, b | 0x80000000)
+    low = ~tid.to(torch.int64) & 0xFFFFFFFF
+    return ((k - 0x80000000) << 32) | low
+
+
+def unpack_key(packed):
+    """Inverse of pack_key: (key f32, tid int32)."""
+    k = (packed >> 32) + 0x80000000
+    b = torch.where((k & 0x80000000) != 0, k & 0x7FFFFFFF, ~k & 0xFFFFFFFF)
+    wrap = lambda x: ((x ^ 0x80000000) - 0x80000000).to(torch.int32)
+    return (wrap(b).view(torch.float32),
+            wrap(~packed & 0xFFFFFFFF))
+
+
+def _box_float4s(lo, hi, bias, active):
+    """The last two float4s of a cluster of a kernel-side table, (n_tab,
+    2, 4): {box lo, the largest depth bias of the cluster's active
+    triangles (0 without any)} and {box hi, 0}. lo, hi: (3, nc), the
+    boxes the visit lists were made from; the pad cluster gets an
+    inverted (never-entered) box, as build_cluster_boxes gives every
+    cluster without an active triangle. bias, active: (n_tab, triangles)."""
+    n_tab = bias.shape[0]
+    pad = lambda a, fill: torch.cat(
+        [a.T, torch.full((n_tab - a.shape[1], 3), fill, device=a.device)])
+    lo, hi = pad(lo, _BIG), pad(hi, -_BIG)
+    bias_max = torch.where(active, bias, -_BIG).amax(dim=1)
+    bias_max = torch.where(active.any(dim=1), bias_max, 0.0)
+    return torch.stack([
+        torch.cat([lo, bias_max[:, None]], dim=1),
+        torch.cat([hi, torch.zeros_like(bias_max)[:, None]], dim=1),
+    ], dim=1)
+
+
+def cluster_slab_mask(rays8, packed):
+    """Torch twin of the walk's per-ray cluster cull: (N, nc + 1) bool,
+    True where a live ray's widened slab interval against the cluster's
+    box (the last two float4s of a kernel-side table, pack_woop_clusters'
+    or pack_mt_clusters') meets [t_min, t_max]. The kernels test a ray
+    against a cluster only where this holds."""
+    box = packed[:, -2:, :3]  # (n_tab, 2, 3)
+    hit, _ = _slab_per_ray_live(rays8[0:3], rays8[3:6], rays8[6], rays8[7],
+                                box[:, 0].T.contiguous(),
+                                box[:, 1].T.contiguous())
+    return hit
+
+
+def walk_grid(woop: bool, shadow: bool, stats: bool = False) -> int:
+    """CTAs of a walk's persistent grid on the current card, SMs x
+    resident CTAs: K1 (woop) or K3, or with shadow K2 (woop) or K4; the
+    counting instantiation with stats. A launch clips it to its item
+    table's size."""
     lib = kernel_library().lib
-    n = n_blocks * BLOCK_RAYS
+    grid = (lib.rt64_woop_grid if woop else lib.rt64_mt_grid)(
+        int(shadow), int(stats))
+    if grid <= 0:
+        raise RuntimeError(f"walk_grid failed: cudaError {-grid}")
+    return grid
+
+
+class _WalkLaunch(NamedTuple):
+    """The walk-only inputs of a card launch, as the C function takes
+    them: addresses into the launch's scratch tensor (or the caller's
+    item table)."""
+
+    items: int  # (max_items,) int32 item codes
+    n_items: int  # (1,) int32
+    max_items: int
+    build_items: bool  # the launch fills items and n_items itself
+    counter: int  # (1,) int32, the grid's work counter
+    best: int  # closest hit: (n,) int64 merge words, else 0
+    scratch: torch.Tensor  # holds the memory the addresses point into
+
+
+def _walk_inputs(rays8, clusters, counts, n_cols, packed, items, float4s,
+                 packer, best_words: bool):
+    """Validate and complete the walk-only inputs of a card launch
+    (packed: `packer`'s table of `float4s` float4s per cluster). Without
+    `items` the launch builds build_work_items' table itself, in its
+    prologue kernel instead of a dozen torch ops. A launch's host time is
+    part of its time, so the scratch (the merge words with best_words,
+    the item table and the work counter, which the prologue zeroes) is
+    one allocation, addressed by offset."""
     dev = rays8.device
+    if dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    n_tab = clusters.shape[0]
+    if packed is None:
+        raise ValueError(f"a launch on the card needs packed, {packer}' "
+                         "kernel-side table")
+    if (packed.dtype != torch.float32
+            or packed.shape != (n_tab, float4s, 4)
+            or packed.device != dev or not packed.is_contiguous()
+            or packed.data_ptr() % 16):
+        raise ValueError(f"packed must be a contiguous, 16-byte aligned "
+                         f"({n_tab}, {float4s}, 4) f32 tensor on {dev}")
+    max_items = counts.shape[0] * -(-n_cols // SLICE_VISITS)
+    words = 2 * rays8.shape[1] if best_words else 0  # int64 as 2 x int32
+    scratch = torch.empty(words + max_items + 2, dtype=torch.int32,
+                          device=dev)
+    at = scratch.data_ptr()
+    counter = at + 4 * (words + max_items + 1)
+    best = at if best_words else 0
+    if items is None:
+        table = at + 4 * words
+        return _WalkLaunch(table, table + 4 * max_items, max_items, True,
+                           counter, best, scratch)
+    table, n_items = items
+    for t, shape, name in ((table, (max_items,), "items"),
+                           (n_items, (1,), "n_items")):
+        if (t.dtype != torch.int32 or t.shape != shape
+                or t.device != dev or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous {shape} int32 "
+                             f"tensor on {dev}")
+    return _WalkLaunch(table.data_ptr(), n_items.data_ptr(), max_items, False,
+                       counter, best, scratch)
+
+
+def work_items_on_card(counts, n_cols: int):
+    """build_work_items as the card's launches make it when they are
+    given no table: (items, n_items) from prologue_kernel alone (for tests
+    and chip_smoke.py; the launches build it in passing)."""
+    dev = counts.device
+    max_items = counts.shape[0] * -(-n_cols // SLICE_VISITS)
+    items = torch.empty(max_items, dtype=torch.int32, device=dev)
+    n_items = torch.zeros(1, dtype=torch.int32, device=dev)
+    if max_items:
+        err = kernel_library().lib.rt64_work_items(
+            counts.data_ptr(), counts.shape[0], max_items, items.data_ptr(),
+            n_items.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        _raise_on(err, "prologue_kernel")
+    return items, n_items
+
+
+def _launch_opaque(fn, float4s, packer, rays8, clusters, visits, counts,
+                   entries, cull_backface, stats, packed, items):
+    """Launch a closest-hit walk, K1 or K3 (the C function `fn`: prologue,
+    walk, final pass), on the current stream."""
+    n_blocks, n_cols = counts.shape[0], visits.shape[1]
+    w = _walk_inputs(rays8, clusters, counts, n_cols, packed, items, float4s,
+                     packer, best_words=True)
+    dev = rays8.device
+    n = n_blocks * BLOCK_RAYS
     t = torch.empty(n, dtype=torch.float32, device=dev)
     tri = torch.empty(n, dtype=torch.int32, device=dev)
     u = torch.empty(n, dtype=torch.float32, device=dev)
     v = torch.empty(n, dtype=torch.float32, device=dev)
     bias = torch.empty(n, dtype=torch.float32, device=dev)
-    stats_ptr = _stats_ptr(stats, n_blocks, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.rt64_trace_opaque(
-        rays8.data_ptr(), n_blocks, clusters.data_ptr(), clusters.shape[0],
+    err = getattr(kernel_library().lib, fn)(
+        rays8.data_ptr(), n_blocks, packed.data_ptr(), packed.shape[0],
         visits.data_ptr(), counts.data_ptr(), entries.data_ptr(), n_cols,
-        int(bool(cull_backface)), t.data_ptr(), tri.data_ptr(),
-        u.data_ptr(), v.data_ptr(), bias.data_ptr(), stats_ptr, stream,
+        int(bool(cull_backface)), w.items, w.n_items, w.max_items,
+        int(w.build_items), w.counter, w.best, t.data_ptr(), tri.data_ptr(),
+        u.data_ptr(), v.data_ptr(), bias.data_ptr(),
+        _stats_ptr(stats, n_blocks, dev),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
-    _raise_on(err, "trace_opaque_kernel")
+    _raise_on(err, fn)
     return t, tri, u, v, bias
+
+
+def _launch_shadow(fn, float4s, packer, rays8, clusters, visits, counts,
+                   entries, stats, packed, items):
+    """Launch an occlusion walk, K2 or K4 (the C function `fn`: prologue,
+    which zeroes the flags, and walk), on the current stream."""
+    n_blocks, n_cols = counts.shape[0], visits.shape[1]
+    w = _walk_inputs(rays8, clusters, counts, n_cols, packed, items, float4s,
+                     packer, best_words=False)
+    dev = rays8.device
+    blocked = torch.empty(n_blocks * BLOCK_RAYS, dtype=torch.int32, device=dev)
+    err = getattr(kernel_library().lib, fn)(
+        rays8.data_ptr(), n_blocks, packed.data_ptr(), packed.shape[0],
+        visits.data_ptr(), counts.data_ptr(), entries.data_ptr(), n_cols,
+        w.items, w.n_items, w.max_items, int(w.build_items), w.counter,
+        blocked.data_ptr(), _stats_ptr(stats, n_blocks, dev),
+        torch.cuda.current_stream(dev).cuda_stream,
+    )
+    _raise_on(err, fn)
+    return blocked
+
+
+# ---------------------------------------------------------------------------
+# K1: closest opaque hit
+# ---------------------------------------------------------------------------
+
+
+def pack_woop_clusters(clusters, lo, hi):
+    """The kernel-side table of K1/K2, (nc + 1, WP_FLOAT4S, 4) f32, from
+    build_cluster_mats' (nc + 1, 14, 64) table: per cluster 64 float4
+    {W row 2, tr.z} (r_z and s_z), 64 {signed thr, depth bias, 0, 0}, 64
+    {W row 0, tr.x} (u), 64 {W row 1, tr.y} (v), then the cluster's box
+    as {lo, largest depth bias of the cluster} and {hi, 0}.
+
+    The rows are copied as they are: an inactive triangle keeps its
+    zero transform and thr = +BIG, and counts as inactive for the
+    largest bias. lo, hi: build_cluster_boxes(scene, K_CS), each
+    (3, nc): the boxes the visit lists were made from."""
+    n_tab = clusters.shape[0]
+    row = lambda r: clusters[:, r]  # (n_tab, 64)
+    w_row = lambda g, tr: [row(C_W + 3 * g + i) for i in range(3)] + [row(tr)]
+    zero = torch.zeros_like(row(C_THR))
+    planes = torch.stack([
+        torch.stack(w_row(2, C_TR + 2), dim=-1),
+        torch.stack([row(C_THR), row(C_BIAS), zero, zero], dim=-1),
+        torch.stack(w_row(0, C_TR), dim=-1),
+        torch.stack(w_row(1, C_TR + 1), dim=-1),
+    ], dim=1)  # (n_tab, 4, 64, 4)
+    active = torch.abs(row(C_THR)) < _BIG * 0.5
+    box = _box_float4s(lo, hi, row(C_BIAS), active)
+    return torch.cat([planes.reshape(n_tab, 4 * K_CS, 4), box],
+                     dim=1).contiguous()
+
+
+def trace_opaque_blocks(rays8, clusters, visits, counts, entries,
+                        cull_backface: bool, stats=None, packed=None,
+                        items=None):
+    """Closest opaque hit per ray over per-block visit lists of
+    64-triangle Woop clusters.
+
+    rays8 (8, B*512) f32; clusters (nc+1, 14, 64) f32; visits (B, nc)
+    int32; counts (B,) int32; entries (B, nc) f32. Returns (t biased
+    key, tri int32 (-1 miss), u, v, bias), each (B*512,); a miss reports
+    t = t_max + 1 and u = v = bias = 0. stats: optional (B, STATS_COLS)
+    int64 tensor on the card that receives, per block, the visits
+    walked, the (ray, triangle) pairs tested and those that passed each
+    early return of the pair test in turn: the keep test, t in range, u,
+    and v with u + v; then the cycles the block's work items held a CTA
+    and its longest item's (kernel only; it selects the counting
+    instantiation of K1).
+
+    CPU tensors take trace_opaque_plain; CUDA tensors launch K1
+    (csrc/packet_tracer.cu, the walk of csrc/packet_walk.cuh). On the
+    card the time goes to the pair test (bound by instruction dispatch:
+    a warp runs every stage any of its lanes reaches, for all its lanes)
+    and, where lists are long, to the CTA that walks the longest. So the
+    walk runs as work items, slices of SLICE_VISITS visits of one
+    block's list (items: build_work_items' table, made by the launch
+    itself when not given), pulled by a persistent grid; clusters arrive
+    through an asynchronous shared-memory ring; per visit every ray is
+    put to the slab test against the cluster's box (the box rows of
+    packed, the scene's pack_woop_clusters table, which a launch on the
+    card must be given: prepare_opaque's result carries it;
+    cluster_slab_mask is the test's twin) and only the rays that enter
+    are gathered and dealt to the warps as tasks of 32 rays x 8 or 16
+    triangles; the pair test reads 16-byte operands. Items and tasks
+    merge through atomicMin on a packed (key, ~id) word per ray (pack_key
+    is its twin), which is the tie rule, so the result does not depend
+    on the order they ran in; a last pass recomputes u, v and bias from
+    the winning triangle."""
+    _check_inputs(rays8, clusters, visits, counts, entries)
+    if rays8.device.type == "cpu":
+        return trace_opaque_plain(rays8, clusters, visits, counts, entries,
+                                  cull_backface)
+    out = _launch_opaque("rt64_trace_opaque", WP_FLOAT4S,
+                         "pack_woop_clusters", rays8, clusters, visits,
+                         counts, entries, cull_backface, stats, packed, items)
+    launch_counts.opaque_launches += 1
+    return out
 
 
 def _block_rays(rays8, n_blocks):
@@ -620,43 +886,30 @@ def trace_opaque_plain(rays8, clusters, visits, counts, entries,
         flat(torch.where(found, best_b, 0.0)),
     )
 
-
 # ---------------------------------------------------------------------------
 # K2: any-hit occlusion
 # ---------------------------------------------------------------------------
 
+
 def trace_shadow_blocks(rays8, clusters, visits, counts, entries,
-                        stats=None):
-    """Occlusion per ray over per-block visit lists (never culls).
-    Returns (B*512,) int32 blocked flags. CPU tensors take
-    trace_shadow_plain; CUDA tensors launch K2. stats: as for
-    trace_opaque_blocks, with the stages of K2's test: the keep test,
-    t in range, and u with v and u + v (the last column stays 0)."""
-    n_blocks, n_cols = _check_inputs(rays8, clusters, visits, counts, entries)
+                        stats=None, packed=None, items=None):
+    """Occlusion per ray over per-block visit lists of 64-triangle Woop
+    clusters (never culls). Returns (B*512,) int32 blocked flags. CPU
+    tensors take trace_shadow_plain; CUDA tensors launch K2
+    (csrc/packet_tracer.cu). stats, packed, items and the design: as for
+    trace_opaque_blocks, with the stages of K2's division-free test: the
+    keep test, t in range, and u with v and u + v (the fourth stage
+    column stays 0). K2's items merge through the flags themselves
+    (zeroed by the launch; a slice that blocks a ray stores 1, and an item
+    skips the rays an earlier one has blocked), and a block's bound is
+    the largest t_max among its unblocked rays."""
+    _check_inputs(rays8, clusters, visits, counts, entries)
     if rays8.device.type == "cpu":
         return trace_shadow_plain(rays8, clusters, visits, counts, entries)
-    blocked = _launch_shadow(rays8, clusters, visits, counts, entries,
-                             n_blocks, n_cols, stats)
+    blocked = _launch_shadow("rt64_trace_shadow", WP_FLOAT4S,
+                             "pack_woop_clusters", rays8, clusters, visits,
+                             counts, entries, stats, packed, items)
     launch_counts.shadow_launches += 1
-    return blocked
-
-
-def _launch_shadow(rays8, clusters, visits, counts, entries, n_blocks, n_cols,
-                   stats):
-    """Launch K2 on the current stream."""
-    if rays8.device.type != "cuda":
-        raise ValueError(f"unsupported device {rays8.device}")
-    lib = kernel_library().lib
-    dev = rays8.device
-    blocked = torch.empty(n_blocks * BLOCK_RAYS, dtype=torch.int32, device=dev)
-    stats_ptr = _stats_ptr(stats, n_blocks, dev)
-    stream = torch.cuda.current_stream(dev).cuda_stream
-    err = lib.rt64_trace_shadow(
-        rays8.data_ptr(), n_blocks, clusters.data_ptr(), clusters.shape[0],
-        visits.data_ptr(), counts.data_ptr(), entries.data_ptr(), n_cols,
-        blocked.data_ptr(), stats_ptr, stream,
-    )
-    _raise_on(err, "trace_shadow_kernel")
     return blocked
 
 
@@ -680,7 +933,6 @@ def trace_shadow_plain(rays8, clusters, visits, counts, entries):
                & (p >= tmin * q) & (p <= tmax * q))
         blocked = blocked | hit.any(dim=2)
     return blocked.reshape(-1).to(torch.int32)
-
 
 # ---------------------------------------------------------------------------
 # K3 / K4: the same two functions over the 128-triangle MT table
@@ -717,159 +969,8 @@ def pack_mt_clusters(clusters, lo, hi):
                   dim=1),
     ], dim=1)  # (n_tab, 3, 4, 128)
     tris = planes.permute(0, 1, 3, 2).reshape(n_tab, 3 * CLUSTER_SIZE, 4)
-    pad = lambda a, fill: torch.cat(
-        [a.T, torch.full((n_tab - a.shape[1], 3), fill, device=a.device)])
-    lo, hi = pad(lo, _BIG), pad(hi, -_BIG)
-    bias_max = torch.where(active, bias, -_BIG).amax(dim=1)
-    bias_max = torch.where(active.any(dim=1), bias_max, 0.0)
-    box = torch.stack([
-        torch.cat([lo, bias_max[:, None]], dim=1),
-        torch.cat([hi, torch.zeros_like(bias_max)[:, None]], dim=1),
-    ], dim=1)  # (n_tab, 2, 4)
+    box = _box_float4s(lo, hi, bias, active)
     return torch.cat([tris, box], dim=1).contiguous()
-
-
-def cluster_slab_mask(rays8, packed):
-    """Torch twin of the kernels' per-ray cluster cull: (N, nc + 1) bool,
-    True where a live ray's widened slab interval against the cluster's
-    box (the box rows of the kernel-side table) meets [t_min, t_max].
-    The kernels test a ray against a cluster only where this holds."""
-    box = packed[:, 3 * CLUSTER_SIZE:, :3]  # (n_tab, 2, 3)
-    hit, _ = _slab_per_ray_live(rays8[0:3], rays8[3:6], rays8[6], rays8[7],
-                                box[:, 0].T.contiguous(),
-                                box[:, 1].T.contiguous())
-    return hit
-
-
-def build_work_items(counts, n_cols: int):
-    """The work items of a K3/K4 launch: every block's visit list cut
-    into slices of at most SLICE_VISITS visits.
-
-    Returns (items (B * ceil(n_cols / SLICE_VISITS),) int32, n_items
-    (1,) int32). Only the first n_items entries are items. An item is
-    the code slice * B + block: it stands for visits
-    [slice * SLICE_VISITS, (slice + 1) * SLICE_VISITS) of that block's
-    list (work_item_slices decodes). Items come slice-major: every
-    block's first slice before any second slice, so a block's front
-    slices start before its back slices and have usually lowered the
-    block's bound by then, and the last items to start are single slices
-    of the longest lists. This is the twin of mt_items_kernel, which
-    builds the same table on the card in one launch; nothing is read
-    back here either."""
-    n_blocks = counts.shape[0]
-    dev = counts.device
-    max_slices = -(-n_cols // SLICE_VISITS)
-    levels = torch.arange(max_slices, device=dev, dtype=torch.int32)[:, None]
-    codes = torch.arange(max_slices * n_blocks, device=dev, dtype=torch.int32)
-    slices = (counts + (SLICE_VISITS - 1)) // SLICE_VISITS  # (B,)
-    valid = (levels < slices[None, :]).reshape(-1)  # slice-major grid
-    # Stable compaction: an item's place is the number of items before it.
-    place = torch.cumsum(valid, dim=0)
-    dest = torch.where(valid, place - 1, codes.shape[0])
-    items = torch.empty(codes.shape[0] + 1, dtype=torch.int32, device=dev)
-    items.scatter_(0, dest, codes)
-    return items[:-1], place[-1:].to(torch.int32)
-
-
-def work_item_slices(items, n_items, n_blocks: int):
-    """Decode build_work_items' codes: (block, first visit) of each of
-    the n_items items, two (n_items,) int64 tensors (reads n_items back)."""
-    codes = items[: int(n_items)].to(torch.int64)
-    return codes % n_blocks, (codes // n_blocks) * SLICE_VISITS
-
-
-def pack_key(key, tid):
-    """Torch twin of K3's packed merge word (mt_tracer.cu pack_hit): the
-    biased key's float bits mapped to an order-preserving unsigned (all
-    bits of a negative flipped, the sign bit of a non-negative set, -0.0
-    made +0.0 first) above ~tid. Returned as int64 with the top bit
-    flipped, so that signed order here equals the kernel's unsigned
-    order: the minimum is the smallest key and, among equal keys, the
-    largest id; tid -1 (a miss) wins every tie."""
-    key = torch.where(key == 0.0, torch.zeros_like(key), key)
-    b = key.contiguous().view(torch.int32).to(torch.int64) & 0xFFFFFFFF
-    k = torch.where((b & 0x80000000) != 0, ~b & 0xFFFFFFFF, b | 0x80000000)
-    low = ~tid.to(torch.int64) & 0xFFFFFFFF
-    return ((k - 0x80000000) << 32) | low
-
-
-def unpack_key(packed):
-    """Inverse of pack_key: (key f32, tid int32)."""
-    k = (packed >> 32) + 0x80000000
-    b = torch.where((k & 0x80000000) != 0, k & 0x7FFFFFFF, ~k & 0xFFFFFFFF)
-    wrap = lambda x: ((x ^ 0x80000000) - 0x80000000).to(torch.int32)
-    return (wrap(b).view(torch.float32),
-            wrap(~packed & 0xFFFFFFFF))
-
-
-def mt_grid(shadow: bool, stats: bool = False) -> int:
-    """CTAs of K3's (or, shadow, K4's) persistent grid on the current
-    card: SMs x resident CTAs, before a launch clips it to its item
-    table's size."""
-    grid = kernel_library().lib.rt64_mt_grid(int(shadow), int(stats))
-    if grid <= 0:
-        raise RuntimeError(f"rt64_mt_grid failed: cudaError {-grid}")
-    return grid
-
-
-class _MtLaunch(NamedTuple):
-    """The K3/K4-only inputs of a card launch."""
-
-    packed: torch.Tensor  # the kernel-side cluster table
-    items: torch.Tensor  # (max_items,) int32 item codes
-    n_items: torch.Tensor  # (1,) int32
-    build_items: bool  # the launch fills items and n_items itself
-    counter: torch.Tensor  # the grid's work counter, zeroed
-
-
-def _mt_launch_inputs(rays8, clusters, counts, n_cols, packed, items):
-    """Validate and complete the K3/K4-only inputs of a card launch.
-    Without `items` the launch builds build_work_items' table itself, in
-    one small kernel (mt_items_kernel) instead of a dozen torch ops."""
-    dev = rays8.device
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    n_tab = clusters.shape[0]
-    if packed is None:
-        raise ValueError("a launch on the card needs packed, "
-                         "pack_mt_clusters' kernel-side table")
-    if (packed.dtype != torch.float32
-            or tuple(packed.shape) != (n_tab, PK_FLOAT4S, 4)
-            or packed.device != dev or not packed.is_contiguous()
-            or packed.data_ptr() % 16):
-        raise ValueError(f"packed must be a contiguous, 16-byte aligned "
-                         f"({n_tab}, {PK_FLOAT4S}, 4) f32 tensor on {dev}")
-    max_items = counts.shape[0] * -(-n_cols // SLICE_VISITS)
-    build_items = items is None
-    if build_items:
-        items = (torch.empty(max_items, dtype=torch.int32, device=dev),
-                 torch.empty(1, dtype=torch.int32, device=dev))
-    table, n_items = items
-    for t, shape, name in ((table, (max_items,), "items"),
-                           (n_items, (1,), "n_items")):
-        if (t.dtype != torch.int32 or tuple(t.shape) != shape
-                or t.device != dev or not t.is_contiguous()):
-            raise ValueError(f"{name} must be a contiguous {shape} int32 "
-                             f"tensor on {dev}")
-    # The work counter is zeroed on this stream before every launch.
-    counter = torch.zeros(1, dtype=torch.int32, device=dev)
-    return _MtLaunch(packed, table, n_items, build_items, counter)
-
-
-def work_items_on_card(counts, n_cols: int):
-    """build_work_items as the card's launches make it when they are
-    given no table: (items, n_items) from mt_items_kernel alone (for
-    tests and chip_smoke.py; the launches build it in passing)."""
-    dev = counts.device
-    max_items = counts.shape[0] * -(-n_cols // SLICE_VISITS)
-    items = torch.empty(max_items, dtype=torch.int32, device=dev)
-    n_items = torch.zeros(1, dtype=torch.int32, device=dev)
-    if max_items:
-        err = kernel_library().lib.rt64_mt_items(
-            counts.data_ptr(), counts.shape[0], max_items, items.data_ptr(),
-            n_items.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        _raise_on(err, "mt_items_kernel")
-    return items, n_items
 
 
 def trace_opaque_mt_blocks(rays8, clusters, visits, counts, entries,
@@ -883,55 +984,21 @@ def trace_opaque_mt_blocks(rays8, clusters, visits, counts, entries,
     key, tri int32 (-1 miss), u, v, bias), each (B*512,); a miss reports
     t = t_max + 1. stats: as for trace_opaque_blocks, with the pairs
     counted over active triangles (tested) and the stages of the
-    Moller-Trumbore test: the determinant, u, v with u + v, t in range;
-    K3 also fills the two cycle columns (STAT_CYCLES, STAT_ITEM_CYCLES).
+    Moller-Trumbore test: the determinant, u, v with u + v, t in range.
 
     CPU tensors take trace_opaque_mt_plain; CUDA tensors launch K3
-    (csrc/mt_tracer.cu). On the card the time goes to the pair test
-    (bound by instruction dispatch: a warp runs every stage any of its
-    lanes reaches, for all its lanes) and, for incoherent rays, used to
-    go to the one CTA that walked the longest list. So K3 runs as work
-    items, slices of SLICE_VISITS visits of one block's list (items:
-    build_work_items' table, made by the launch itself when not given),
-    pulled by a persistent grid; clusters arrive through an asynchronous
-    shared-memory ring; per visit every ray is put to the slab test
-    against the cluster's box (the box rows of packed, the scene's
-    pack_mt_clusters table, which a launch on the card must be given:
-    prepare_opaque's result carries it; cluster_slab_mask is the test's
-    twin) and
-    only the rays that enter are gathered and dealt to the warps as
-    tasks of 32 rays x 8 or 16 triangles; the pair test reads 16-byte
-    operands. Items and tasks merge through atomicMin on a packed
-    (key, ~id) word per ray (pack_key is its twin), which is the tie
-    rule, so the result does not depend on the order they ran in; a last
-    pass recomputes u, v and bias from the winning triangle."""
-    n_blocks, n_cols = _check_inputs(rays8, clusters, visits, counts, entries,
-                                     _MT_TABLE)
+    (csrc/mt_tracer.cu): the walk of trace_opaque_blocks over the
+    scene's pack_mt_clusters table (packed, which a launch on the card
+    must be given; items as there)."""
+    _check_inputs(rays8, clusters, visits, counts, entries, _MT_TABLE)
     if rays8.device.type == "cpu":
         return trace_opaque_mt_plain(rays8, clusters, visits, counts, entries,
                                      cull_backface)
-    mt = _mt_launch_inputs(rays8, clusters, counts, n_cols, packed, items)
-    dev = rays8.device
-    n = n_blocks * BLOCK_RAYS
-    best = torch.empty(n, dtype=torch.int64, device=dev)  # the merge words
-    t = torch.empty(n, dtype=torch.float32, device=dev)
-    tri = torch.empty(n, dtype=torch.int32, device=dev)
-    u = torch.empty(n, dtype=torch.float32, device=dev)
-    v = torch.empty(n, dtype=torch.float32, device=dev)
-    bias = torch.empty(n, dtype=torch.float32, device=dev)
-    stats_ptr = _stats_ptr(stats, n_blocks, dev)
-    err = kernel_library().lib.rt64_trace_opaque_mt(
-        rays8.data_ptr(), n_blocks, mt.packed.data_ptr(), mt.packed.shape[0],
-        visits.data_ptr(), counts.data_ptr(), entries.data_ptr(), n_cols,
-        int(bool(cull_backface)), mt.items.data_ptr(), mt.n_items.data_ptr(),
-        mt.items.shape[0], int(mt.build_items), mt.counter.data_ptr(),
-        best.data_ptr(), t.data_ptr(),
-        tri.data_ptr(), u.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        stats_ptr, torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(err, "trace_opaque_mt_kernel")
+    out = _launch_opaque("rt64_trace_opaque_mt", PK_FLOAT4S,
+                         "pack_mt_clusters", rays8, clusters, visits, counts,
+                         entries, cull_backface, stats, packed, items)
     launch_counts.opaque_mt_launches += 1
-    return t, tri, u, v, bias
+    return out
 
 
 def trace_shadow_mt_blocks(rays8, clusters, visits, counts, entries,
@@ -939,30 +1006,18 @@ def trace_shadow_mt_blocks(rays8, clusters, visits, counts, entries,
     """Occlusion per ray over per-block visit lists of 128-triangle
     Moller-Trumbore clusters (never culls). Returns (B*512,) int32
     blocked flags. CPU tensors take trace_shadow_mt_plain; CUDA tensors
-    launch K4 (csrc/mt_tracer.cu). stats, packed, items and the design:
-    as for trace_opaque_mt_blocks; K4's items merge through the flags
-    themselves (zero-filled here; a slice that blocks a ray stores 1,
-    and an item skips the rays an earlier one has blocked), and a
-    block's bound is the largest t_max among its unblocked rays."""
-    n_blocks, n_cols = _check_inputs(rays8, clusters, visits, counts, entries,
-                                     _MT_TABLE)
+    launch K4 (csrc/mt_tracer.cu), the walk of trace_shadow_blocks over
+    the scene's pack_mt_clusters table. stats, packed, items: as for
+    trace_opaque_mt_blocks."""
+    _check_inputs(rays8, clusters, visits, counts, entries, _MT_TABLE)
     if rays8.device.type == "cpu":
         return trace_shadow_mt_plain(rays8, clusters, visits, counts, entries)
-    mt = _mt_launch_inputs(rays8, clusters, counts, n_cols, packed, items)
-    dev = rays8.device
-    blocked = torch.zeros(n_blocks * BLOCK_RAYS, dtype=torch.int32, device=dev)
-    stats_ptr = _stats_ptr(stats, n_blocks, dev)
-    err = kernel_library().lib.rt64_trace_shadow_mt(
-        rays8.data_ptr(), n_blocks, mt.packed.data_ptr(), mt.packed.shape[0],
-        visits.data_ptr(), counts.data_ptr(), entries.data_ptr(), n_cols,
-        mt.items.data_ptr(), mt.n_items.data_ptr(), mt.items.shape[0],
-        int(mt.build_items), mt.counter.data_ptr(), blocked.data_ptr(),
-        stats_ptr,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _raise_on(err, "trace_shadow_mt_kernel")
+    blocked = _launch_shadow("rt64_trace_shadow_mt", PK_FLOAT4S,
+                             "pack_mt_clusters", rays8, clusters, visits,
+                             counts, entries, stats, packed, items)
     launch_counts.shadow_mt_launches += 1
     return blocked
+
 
 
 def _mt_tiles(rays8, counts):
@@ -1073,6 +1128,7 @@ def trace_shadow_mt_plain(rays8, clusters, visits, counts, entries):
 # Regrouping incoherent rays into coherent blocks
 # ---------------------------------------------------------------------------
 
+
 def _regroup_order(origins, dirs, t_min, t_max, mode: str):
     """Ray order that packs coherent rays into the same 512-ray blocks:
     (order, inverse), both (N,) int64.
@@ -1130,6 +1186,7 @@ def _regrouped(base_fn, mode: str):
 # opaque_fn hooks for ops/tracer.py
 # ---------------------------------------------------------------------------
 
+
 class PacketInputs(NamedTuple):
     """One launch's kernel inputs (the host-side prep of a trace)."""
 
@@ -1140,7 +1197,7 @@ class PacketInputs(NamedTuple):
     entries: torch.Tensor
     n: int  # real rays (the rest of rays8 is padding)
     mt: bool  # the 128-triangle MT table (K3/K4), else the Woop table
-    packed: torch.Tensor | None = None  # K3/K4's kernel-side table
+    packed: torch.Tensor | None = None  # the kernel-side table (card only)
 
 
 def _pad_to_blocks(origins, dirs, t_min, t_max):
@@ -1165,7 +1222,12 @@ class SceneTables(NamedTuple):
     lo: torch.Tensor  # cluster boxes at the switch's granularity
     hi: torch.Tensor
     table: torch.Tensor  # Woop (resident) or Moller-Trumbore cluster table
-    packed: torch.Tensor | None  # K3/K4's kernel-side table (card only)
+    packed: torch.Tensor | None  # the kernels' repacked table (card only)
+
+
+# Devices whose launches read the kernel-side tables (the CPU twins read
+# the cluster tables themselves).
+_PACKED_ON = ("cuda",)
 
 
 def _scene_tables(scene) -> SceneTables:
@@ -1184,13 +1246,12 @@ def _scene_tables(scene) -> SceneTables:
         return memo[2]
     resident = clusters_resident(scene.num_triangles)
     lo, hi = build_cluster_boxes(scene, K_CS if resident else CLUSTER_SIZE)
+    build = build_cluster_mats if resident else build_cluster_data
+    table = build(scene)
     packed = None
-    if resident:
-        table = build_cluster_mats(scene)
-    else:
-        table = build_cluster_data(scene)
-        if table.device.type == "cuda":  # only the card's kernels read it
-            packed = pack_mt_clusters(table, lo, hi)
+    if table.device.type in _PACKED_ON:
+        pack = pack_woop_clusters if resident else pack_mt_clusters
+        packed = pack(table, lo, hi)
     tables = SceneTables(resident, lo, hi, table, packed)
     scene.v0._rt64_scene_tables = (
         tuple(weakref.ref(t) for t in tensors), stamp, tables)
@@ -1269,12 +1330,9 @@ def make_opaque_fn(regroup=None):
                   chunk=0):
         del chunk
         p = prepare_opaque(origins, dirs, t_min, t_max, scene)
-        args = (p.rays8, p.clusters, p.visits, p.counts, p.entries,
-                cull_backface)
-        if p.mt:
-            t, tri, u, v, bias = trace_opaque_mt_blocks(*args, packed=p.packed)
-        else:
-            t, tri, u, v, bias = trace_opaque_blocks(*args)
+        trace = trace_opaque_mt_blocks if p.mt else trace_opaque_blocks
+        t, tri, u, v, bias = trace(p.rays8, p.clusters, p.visits, p.counts,
+                                   p.entries, cull_backface, packed=p.packed)
         n = p.n
         tri = tri[:n]
         t = torch.where(tri >= 0, t[:n], _BIG)
@@ -1293,11 +1351,9 @@ def make_shadow_opaque_fn(regroup=None):
                   chunk=0):
         del chunk, cull_backface  # shadows never cull
         p = prepare_shadow(origins, dirs, t_min, t_max, scene)
-        args = (p.rays8, p.clusters, p.visits, p.counts, p.entries)
-        if p.mt:
-            blocked = trace_shadow_mt_blocks(*args, packed=p.packed)
-        else:
-            blocked = trace_shadow_blocks(*args)
+        trace = trace_shadow_mt_blocks if p.mt else trace_shadow_blocks
+        blocked = trace(p.rays8, p.clusters, p.visits, p.counts, p.entries,
+                        packed=p.packed)
         blocked = blocked[: p.n] > 0
         n = p.n
         dev = origins.device

@@ -53,12 +53,14 @@ def _rays(seed, shadow, device, n=4096):
     return origins, dirs, t_min, t_max
 
 
-def _prepared(seed, shadow, device, case="base"):
-    """One launch's inputs. case "long_lists": 64 clusters of 128 and
-    incoherent rays, so that a block's list is several work items long;
-    "mostly_dead": 9 rays in 10 have an empty interval."""
+def _prepared(seed, shadow, device, case="base", n=4096):
+    """One launch's inputs. case "long_lists": 8192 triangles (64
+    clusters of 128, or 128 of 64) and incoherent rays, so that a block's
+    list is several work items long; "mostly_dead": 9 rays in 10 have an
+    empty interval. n: rays (the prep pads the last block with dead
+    rays)."""
     prep = tc.prepare_shadow if shadow else tc.prepare_opaque
-    origins, dirs, t_min, t_max = _rays(seed, shadow, device)
+    origins, dirs, t_min, t_max = _rays(seed, shadow, device, n=n)
     if case == "mostly_dead":
         dead = torch.from_numpy(
             np.random.default_rng(seed).uniform(size=t_max.shape[0]) < 0.9)
@@ -95,11 +97,16 @@ def _counted(wrapper, args, counts, cluster_size, **kw):
     return out, tested, stages
 
 
+# Rays of the K1/K2 twin tests: the last block is partial.
+PARTIAL = 4096 + 300
+
+
 @pytest.mark.parametrize("cull", [True, False])
 def test_k1_matches_plain_twin(card, cull):
-    p = _prepared(0, False, card)
+    p = _prepared(0, False, card, n=PARTIAL)
+    assert not p.mt and p.packed is not None
     before = tc.launch_counts.opaque_launches
-    t, tri, u, v, b = tc.trace_opaque_blocks(*p[:5], cull)
+    t, tri, u, v, b = tc.trace_opaque_blocks(*p[:5], cull, packed=p.packed)
     assert tc.launch_counts.opaque_launches == before + 1
     t_p, tri_p, u_p, v_p, b_p = tc.trace_opaque_plain(*p[:5], cull)
     torch.cuda.synchronize()
@@ -114,27 +121,63 @@ def test_k1_matches_plain_twin(card, cull):
     assert torch.equal(b[same], b_p[same])
     # The counting instantiation gives the same result and sane counts.
     (t_s, tri_s, *_), tested, stages = _counted(
-        tc.trace_opaque_blocks, (*p[:5], cull), p.counts, tc.K_CS)
+        tc.trace_opaque_blocks, (*p[:5], cull), p.counts, tc.K_CS,
+        packed=p.packed)
     assert torch.equal(tri_s, tri) and torch.equal(t_s, t)
     assert 0 < stages[0].sum() < tested.sum()
+    # A miss keeps the output contract: t = t_max + 1 and zeros.
+    miss = tri < 0
+    assert torch.equal(t[miss], p.rays8[7][miss] + 1.0)
+    assert not (u[miss].any() or v[miss].any() or b[miss].any())
     # Every hit passed the last stage; a ray may hit several triangles.
     assert stages[3].sum() >= (tri >= 0).sum().item()
 
 
+def _hits_per_block_within(hits, blocked, counts, triangles):
+    """Every blocked ray was hit at least once: a ray's pairs are spread
+    over work items and warp tasks, and each stops at its own first
+    blocker. It is tested no further: a blocked ray enters no later
+    visit of the item, so per block the hits are at most blocked rays x
+    the block's items x the tasks that share one ray's cluster."""
+    per_block = blocked.reshape(-1, tc.BLOCK_RAYS).sum(dim=1).cpu()
+    items = -(-counts.cpu() // tc.SLICE_VISITS)
+    tasks = triangles // tc.TASK_TRIS_FEW
+    assert (hits >= per_block).all()
+    assert (hits <= per_block * items * tasks).all()
+
+
 def test_k2_matches_plain_twin(card):
-    p = _prepared(1, True, card)
+    p = _prepared(1, True, card, n=PARTIAL)
+    assert not p.mt
     before = tc.launch_counts.shadow_launches
-    blocked = tc.trace_shadow_blocks(*p[:5])
+    blocked = tc.trace_shadow_blocks(*p[:5], packed=p.packed)
     assert tc.launch_counts.shadow_launches == before + 1
     want = tc.trace_shadow_plain(*p[:5])
     torch.cuda.synchronize()
     assert (blocked == want).float().mean().item() >= 0.999
     assert 0 < blocked.sum().item() < blocked.numel()
     blocked_s, _, stages = _counted(tc.trace_shadow_blocks, p[:5], p.counts,
-                                    tc.K_CS)
+                                    tc.K_CS, packed=p.packed)
     assert torch.equal(blocked_s, blocked)
-    # A ray stops at its first blocker: one hit for each blocked ray.
-    assert stages[2].sum() == blocked.sum().item() and stages[3].sum() == 0
+    # K2's hits are its third stage; its fourth stays 0.
+    _hits_per_block_within(stages[2], blocked, p.counts, tc.K_CS)
+    assert stages[3].sum() == 0
+
+
+def test_k1_k2_need_packed_on_card(card):
+    """On the card the Woop wrappers launch the walk, which reads the
+    kernel-side table: without it they raise (the CPU twins need none)."""
+    p = _prepared(2, False, card)
+    with pytest.raises(ValueError, match="packed"):
+        tc.trace_opaque_blocks(*p[:5], True)
+    with pytest.raises(ValueError, match="packed"):
+        tc.trace_shadow_blocks(*p[:5])
+    wrong = tc.pack_mt_clusters(
+        torch.zeros((p.clusters.shape[0], tc.M_ROWS, tc.CLUSTER_SIZE),
+                    device=card), *tc.build_cluster_boxes(
+                        _scene(2, card), tc.CLUSTER_SIZE))
+    with pytest.raises(ValueError, match="packed"):
+        tc.trace_opaque_blocks(*p[:5], True, packed=wrong)
 
 
 @pytest.mark.parametrize("case", MT_CASES)
@@ -186,26 +229,18 @@ def test_k4_matches_plain_twin(card, streaming, case):
                                     p.counts, tc.CLUSTER_SIZE,
                                     packed=p.packed)
     assert torch.equal(blocked_s, blocked)
-    # Every blocked ray was hit at least once: a ray's pairs are spread
-    # over work items and warp tasks, and each stops at its own first
-    # blocker. It is tested no further: a blocked ray enters no later
-    # visit of the item, so per block the hits are at most blocked rays
-    # x the block's items x the tasks that share one ray's cluster.
-    per_block = blocked.reshape(-1, tc.BLOCK_RAYS).sum(dim=1).cpu()
-    items = -(-p.counts.cpu() // tc.SLICE_VISITS)
-    tasks = tc.CLUSTER_SIZE // tc.TASK_TRIS_FEW
-    assert (stages[3] >= per_block).all()
-    assert (stages[3] <= per_block * items * tasks).all()
+    _hits_per_block_within(stages[3], blocked, p.counts, tc.CLUSTER_SIZE)
     with pytest.raises(ValueError, match="packed"):
         tc.trace_shadow_mt_blocks(*p[:5])
 
 
-@pytest.mark.parametrize("case", MT_CASES)
-def test_k3_order_independent(card, streaming, case):
-    """K3's outputs are the same bits whatever order its work items run
-    in: launched twice, and with the item table reversed; K4's flags
-    too. The card's own item table is build_work_items' table."""
-    p = _prepared(5, False, card, case)
+def _order_independent(p, q):
+    """A closest-hit launch p and a shadow launch q give the same bits
+    whatever order their work items run in: launched twice, and with
+    the item table reversed. The card's own item table is
+    build_work_items' table."""
+    opaque = tc.trace_opaque_mt_blocks if p.mt else tc.trace_opaque_blocks
+    shadow = tc.trace_shadow_mt_blocks if q.mt else tc.trace_shadow_blocks
     n_cols = p.visits.shape[1]
     items, n_items = tc.work_items_on_card(p.counts, n_cols)
     twin, twin_n = tc.build_work_items(p.counts, n_cols)
@@ -215,23 +250,40 @@ def test_k3_order_independent(card, streaming, case):
     assert int((start < p.counts[block]).sum()) == n
     backwards = items.clone()
     backwards[:n] = items[:n].flip(0)
-    first = tc.trace_opaque_mt_blocks(*p[:5], True, packed=p.packed)
+    first = opaque(*p[:5], True, packed=p.packed)
     for again in (
-        tc.trace_opaque_mt_blocks(*p[:5], True, packed=p.packed),
-        tc.trace_opaque_mt_blocks(*p[:5], True, packed=p.packed,
-                                  items=(backwards, n_items)),
+        opaque(*p[:5], True, packed=p.packed),
+        opaque(*p[:5], True, packed=p.packed, items=(backwards, n_items)),
     ):
         for a, b in zip(first, again):
             assert torch.equal(a, b)
     assert (first[1] >= 0).any()
-    q = _prepared(6, True, card, case)
     items, n_items = tc.work_items_on_card(q.counts, q.visits.shape[1])
     n = int(n_items)
     backwards = items.clone()
     backwards[:n] = items[:n].flip(0)
-    flags = tc.trace_shadow_mt_blocks(*q[:5], packed=q.packed)
-    assert torch.equal(flags, tc.trace_shadow_mt_blocks(
-        *q[:5], packed=q.packed, items=(backwards, n_items)))
+    flags = shadow(*q[:5], packed=q.packed)
+    assert flags.any()
+    assert torch.equal(flags, shadow(*q[:5], packed=q.packed))
+    assert torch.equal(flags, shadow(*q[:5], packed=q.packed,
+                                     items=(backwards, n_items)))
+
+
+@pytest.mark.parametrize("case", MT_CASES)
+def test_k3_order_independent(card, streaming, case):
+    """K3's outputs (and K4's flags) do not depend on the order of the
+    work items."""
+    _order_independent(_prepared(5, False, card, case),
+                       _prepared(6, True, card, case))
+
+
+@pytest.mark.parametrize("case", MT_CASES)
+def test_k1_order_independent(card, case):
+    """K1's outputs (and K2's flags) do not depend on the order of the
+    work items."""
+    p, q = _prepared(5, False, card, case), _prepared(6, True, card, case)
+    assert not (p.mt or q.mt)
+    _order_independent(p, q)
 
 
 def test_regroup_parity_on_card(card, monkeypatch):
@@ -254,7 +306,8 @@ def test_regroup_parity_on_card(card, monkeypatch):
 def test_wrapper_rejects_mixed_devices(card):
     p = _prepared(2, False, card)
     with pytest.raises(ValueError):
-        tc.trace_opaque_blocks(p.rays8, p.clusters.cpu(), *p[2:5], True)
+        tc.trace_opaque_blocks(p.rays8, p.clusters.cpu(), *p[2:5], True,
+                               packed=p.packed)
 
 
 @pytest.mark.parametrize("gi", [0, 1])

@@ -1,5 +1,6 @@
 """The host-side pieces of the port's K3/K4 kernels (ops/tracer_cuda.py,
-csrc/mt_tracer.cu), on the CPU: the work-item table, the packed
+csrc/mt_tracer.cu and the walk they share with K1/K2,
+csrc/packet_walk.cuh), on the CPU: the work-item table, the packed
 (key, triangle id) merge word, merging slice by slice, the repacked
 cluster table with its boxes and the slab test that culls rays per
 cluster, the scene-table memo, and the constants and C signatures that
@@ -314,20 +315,26 @@ def test_constants_match_the_cuda_sources():
     for name in ("STATS_COLS", "STAT_STAGES", "STAT_CYCLES",
                  "STAT_ITEM_CYCLES"):
         assert int(_constant(stats, name)) == getattr(tc, name), name
+    walk = _source("packet_walk.cuh")
+    assert int(_constant(walk, "SLICE_VISITS")) == tc.SLICE_VISITS
+    assert int(_constant(walk, "TASK_TRIS_FEW")) == tc.TASK_TRIS_FEW
+    assert int(_constant(walk, "BLOCK_RAYS")) == tc.BLOCK_RAYS
     mt = _source("mt_tracer.cu")
-    assert int(_constant(mt, "SLICE_VISITS")) == tc.SLICE_VISITS
-    assert int(_constant(mt, "TASK_TRIS_FEW")) == tc.TASK_TRIS_FEW
     assert int(_constant(mt, "MT_CS")) == tc.CLUSTER_SIZE
-    assert int(_constant(mt, "BLOCK_RAYS")) == tc.BLOCK_RAYS
     assert _constant(mt, "PK_FLOAT4S") == "3 * MT_CS + 2"
     assert tc.PK_FLOAT4S == 3 * tc.CLUSTER_SIZE + 2
     woop = _source("packet_tracer.cu")
     assert int(_constant(woop, "K_CS")) == tc.K_CS
-    assert int(_constant(woop, "VISIT_UNROLL")) == tc.VISIT_UNROLL
-    assert int(_constant(woop, "SHADOW_UNROLL")) == tc.SHADOW_UNROLL
-    # Both sources take the counters' layout from the one header.
-    assert '#include "work_stats.cuh"' in mt and "STATS_COLS =" not in mt
-    assert '#include "work_stats.cuh"' in woop and "STATS_COLS =" not in woop
+    assert _constant(woop, "WP_FLOAT4S") == "4 * K_CS + 2"
+    assert tc.WP_FLOAT4S == 4 * tc.K_CS + 2
+    # The walk takes the counters' layout from their one header, and both
+    # sources take the walk (and its constants) from the shared header.
+    assert '#include "work_stats.cuh"' in walk and "STATS_COLS =" not in walk
+    for text in (mt, woop):
+        assert '#include "packet_walk.cuh"' in text
+        for name in ("STATS_COLS", "SLICE_VISITS", "BLOCK_RAYS",
+                     "TASK_TRIS_FEW"):
+            assert f"{name} =" not in text, name
 
 
 def test_c_signatures_match_the_cuda_sources():
@@ -335,11 +342,17 @@ def test_c_signatures_match_the_cuda_sources():
     per parameter: c_void_p for a pointer or the stream (anything else
     would cut it to 32 bits), c_int for an int."""
     declared = {}
-    for name in ("packet_tracer.cu", "mt_tracer.cu"):
+    for name in ("packet_tracer.cu", "mt_tracer.cu", "packet_walk.cuh"):
         for fn, params in re.findall(
                 r'extern "C" \w+ (\w+)\(([^)]*)\)', _source(name)):
+            assert fn not in declared, fn
             declared[fn] = [" ".join(p.split()) for p in params.split(",")]
     assert set(declared) == set(tc.C_SIGNATURES)
+    # The Woop and the MT launches take the same arguments.
+    for woop, mt in (("rt64_trace_opaque", "rt64_trace_opaque_mt"),
+                     ("rt64_trace_shadow", "rt64_trace_shadow_mt"),
+                     ("rt64_woop_grid", "rt64_mt_grid")):
+        assert declared[woop] == declared[mt]
     for fn, params in declared.items():
         want = [ctypes.c_void_p if ("*" in p or p.startswith("cudaStream_t"))
                 else ctypes.c_int for p in params]
@@ -364,5 +377,5 @@ def test_build_cache_key_covers_every_file_of_csrc(tmp_path, monkeypatch):
     monkeypatch.undo()
     assert tc._csrc_digest()[0] == sorted(
         n for n in os.listdir(CSRC) if n.endswith((".cu", ".cuh", ".h")))
-    assert {"mt_tracer.cu", "packet_tracer.cu", "work_stats.cuh"} <= set(
-        tc._csrc_digest()[0])
+    assert {"mt_tracer.cu", "packet_tracer.cu", "packet_walk.cuh",
+            "work_stats.cuh"} <= set(tc._csrc_digest()[0])
