@@ -11,7 +11,7 @@ result line):
   2. build: nvcc builds every source under csrc/ (packet_tracer.cu: K1/K2,
      mt_tracer.cu: K3/K4, both over the walk of packet_walk.cuh), build
      seconds;
-  3. K1 (closest hit) against its plain twin on the castle 640x480
+  3. K1 (closest hit) against its plain twin (run once) on the castle 640x480
      frame's own primary-ray batch: tri agreement, hit/miss flips,
      t relative and u/v absolute error p99, bias equality, kernel/plain
      ms, and the bound from the pairs that reached each stage of the
@@ -26,7 +26,15 @@ result line):
   6. sample scene 320x240 rendered on the card and on the CPU, SSIM;
   6b. K1 and K2 the same way on the regrouped bounce launches of a
      castle GI 1280x720 frame (the ray mix of bench config 3: incoherent
-     rays, long visit lists), the plain twins run once;
+     rays, long visit lists);
+  6c. reflections: the same castle GI 1280x720 frame with two reflection
+     bounces (bench config 4 at native size): 10 frames through
+     Device.draw() with the launch counts set to 0 just before and read
+     just after (K1 at least 4 launches a frame), the framebuffer held
+     against the frame drawn without reflections (it must differ where
+     a reflection was seeded and equal it elsewhere), and K1 against its
+     twin on both reflection launches of a settled draw (mirror rays,
+     unregrouped, mostly dead; the second bounce may have none alive);
   7. K3 (closest hit, 128-triangle clusters) against its plain twin on
      the primary launch of a large-castle 1280x720 GI frame, K1 on the
      same rays and scene for comparison, and K3 against its twin on the
@@ -34,12 +42,20 @@ result line):
      lists: the frame's dearest K3 launch);
   8. K4 (occlusion) the same way on that frame's largest shadow launch,
      with K2 on the same rays, and on its bounce-shadow launch;
+  8b. K3 against its twin on the first reflection launch of one more
+     draw of that scene, with two reflection bounces;
   9. large-scene GI path: 10 frames of the large castle (32,768-triangle
      bucket, beyond the size switch) at 1280x720 with di 1, gi 1 and the
      denoiser (which turns GI reprojection on) through Device.draw();
      K3 and K4 must launch, K1 and K2 must not, history must be read;
  10. castle 160x120 with GI (K1/K2 path, regrouped bounce rays), two
      frames on the card and on the CPU, SSIM;
+ 11. card against CPU, SSIM: the castle 160x120 with GI, the denoiser
+     and two reflection bounces (two frames); the glass sample scene
+     160x120 with its glass made translucent (refraction, its shadow
+     rays through K2) and two reflection bounces; the mip-LOD floor
+     128x96; and on the card the floor's dealiasing (band std with the
+     flag under 0.35 of without, band means within 0.02);
 then the kernel table line and the result line.
 
 It imports torch, numpy and rt64tpu_torch only.
@@ -95,6 +111,17 @@ PREV_BOUND_MS = {"k1": 0.0345, "k2": 0.1411, "k1_bounce": 0.0878,
 CASTLE_W, CASTLE_H = 640, 480
 MAIN_FRAMES = 10
 GI_W, GI_H = 1280, 720
+# Bench config 4: the castle GI frame with two reflection bounces.
+REFL_BOUNCES = 2
+REFL_FRAMES = 10
+# The castle drawn with and without reflections, after the same draws:
+# a pixel that seeds no reflection may differ by at most this much per
+# RGB8 channel (the GI noise of one draw, should the boost ladder climb
+# once more with reflections; measured 0 when it does not), and at least
+# half the pixels that seed one must differ by more than
+# REFL_CHANGED_MIN.
+REFL_ELSEWHERE_TOL = 8
+REFL_CHANGED_MIN = 2
 LARGE_W, LARGE_H = 1280, 720
 LARGE_TERRAIN_N = 128
 LARGE_FRAMES = 10
@@ -225,9 +252,10 @@ def work_item_fields(tag, wrapper, args, kw, shadow):
     same = all(torch.equal(a, b) and torch.equal(a, c)
                for a, b, c in zip(first, again, turned))
     woop = args[1].shape[2] == tc.K_CS
+    grid = tc.walk_grid(woop, shadow)
     return dict(work_items=n, slice_visits=tc.SLICE_VISITS,
-                ctas_launched=min(tc.walk_grid(woop, shadow), items.shape[0]),
-                order_independent=same)
+                ctas_launched=min(grid, items.shape[0]),
+                ctas_with_work=min(grid, n), order_independent=same)
 
 
 def largest(calls):
@@ -236,11 +264,11 @@ def largest(calls):
     return max(calls, key=lambda c: c[0][0].shape[1])
 
 
-def closest_hit_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
+def closest_hit_phase(tag, call, wrapper, twin, flops_by_stage):
     """Hold a closest-hit kernel (K1 or K3) against its plain twin on one
     recorded launch (with the keyword arguments the frame gave it), time
-    both, and bound it by the counted work. plain_reps 0: the twin runs
-    once, and that run is its time."""
+    both (the twin runs once, and that run is its time), and bound it by
+    the counted work."""
     import torch
     from rt64tpu_torch.ops import tracer_cuda as tc
     from rt64tpu_torch.utils.kernel_times import batched_ms
@@ -249,7 +277,7 @@ def closest_hit_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
     n = rays8.shape[1]
     args = (rays8, clusters, visits, counts, entries, cull)
     t_k, tri_k, u_k, v_k, b_k = wrapper(*args, **kw)
-    (t_p, tri_p, u_p, v_p, b_p), plain_once = timed(lambda: twin(*args))
+    (t_p, tri_p, u_p, v_p, b_p), plain_ms = timed(lambda: twin(*args))
     # The counting instantiation: the work this run's data needs.
     stats = torch.empty((counts.shape[0], tc.STATS_COLS), dtype=torch.int64,
                         device=rays8.device)
@@ -258,7 +286,14 @@ def closest_hit_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
     agree = (tri_k == tri_p).float().mean().item()
     flips = ((tri_k >= 0) != (tri_p >= 0)).float().mean().item()
     same = (tri_k == tri_p) & (tri_k >= 0)
-    check(bool(same.any()), f"{tag} and its plain twin share no hit")
+    hits = int(same.sum())
+    if not hits:
+        # A launch with no hit at all (a reflection bounce with nothing
+        # left to mirror): every output must equal the twin's "no hit"
+        # (tri -1, t = t_max + 1, u = v = bias = 0) on every ray.
+        check(bool((tri_k == -1).all() and (tri_p == -1).all()),
+              f"{tag} and its plain twin share no hit")
+        same = torch.ones_like(same)
     abs_err = lambda a, b: (a[same] - b[same]).abs().double()
     rel = abs_err(t_k, t_p) / t_p[same].abs().clamp(min=1e-6)
     rel_p99 = quantile(rel, 0.99)
@@ -271,16 +306,15 @@ def closest_hit_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
     del t_p, tri_p, u_p, v_p, b_p, t_s, tri_s, u_s, v_s, b_s
     ms = time_ms(lambda: wrapper(*args, **kw), reps=25)
     ms_batched = batched_ms(lambda: wrapper(*args, **kw))
-    plain_ms = (time_ms(lambda: twin(*args), reps=plain_reps, warmup=1)
-                if plain_reps else plain_once)
     work = counted_work(stats, flops_by_stage)
     work.update(work_item_fields(tag, wrapper, args, kw, shadow=False),
-                prev_ms=PREV_MS[tag], prev_bound_ms=PREV_BOUND_MS[tag])
+                prev_ms=PREV_MS.get(tag), prev_bound_ms=PREV_BOUND_MS.get(tag))
     n_bytes = sum(a.numel() * a.element_size()
                   for a in (rays8, clusters, visits, counts, entries))
     n_bytes += 5 * 4 * n
     bms, by = bound_ms(n_bytes, work["flops"])
-    row = dict(phase=tag, rays=n, blocks=counts.shape[0],
+    row = dict(phase=tag, rays=n, live_rays=int((rays8[7] >= rays8[6]).sum()),
+               hits=hits, blocks=counts.shape[0],
                clusters=clusters.shape[0] - 1,
                cluster_triangles=clusters.shape[2],
                tri_agreement=agree, hit_miss_flips=flips,
@@ -308,10 +342,10 @@ def quantile(x, q):
     return x[min(int(q * x.numel()), x.numel() - 1)].item()
 
 
-def occlusion_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
+def occlusion_phase(tag, call, wrapper, twin, flops_by_stage):
     """Hold an occlusion kernel (K2 or K4) against its plain twin on one
-    recorded launch, time both, and bound it by the counted work
-    (plain_reps: as for closest_hit_phase)."""
+    recorded launch, time both (the twin once), and bound it by the
+    counted work."""
     import torch
     from rt64tpu_torch.ops import tracer_cuda as tc
     from rt64tpu_torch.utils.kernel_times import batched_ms
@@ -320,7 +354,7 @@ def occlusion_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
     n = rays8.shape[1]
     args = (rays8, clusters, visits, counts, entries)
     bl_k = wrapper(*args, **kw)
-    bl_p, plain_once = timed(lambda: twin(*args))
+    bl_p, plain_ms = timed(lambda: twin(*args))
     stats = torch.empty((counts.shape[0], tc.STATS_COLS), dtype=torch.int64,
                         device=rays8.device)
     bl_s = wrapper(*args, stats=stats, **kw)
@@ -330,8 +364,6 @@ def occlusion_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
     stats_same = torch.equal(bl_s, bl_k)
     ms = time_ms(lambda: wrapper(*args, **kw), reps=25)
     ms_batched = batched_ms(lambda: wrapper(*args, **kw))
-    plain_ms = (time_ms(lambda: twin(*args), reps=plain_reps, warmup=1)
-                if plain_reps else plain_once)
     work = counted_work(stats, flops_by_stage)
     work.update(work_item_fields(tag, wrapper, args, kw, shadow=True),
                 prev_ms=PREV_MS[tag], prev_bound_ms=PREV_BOUND_MS[tag])
@@ -356,24 +388,25 @@ def occlusion_phase(tag, call, wrapper, twin, flops_by_stage, plain_reps):
     return row
 
 
-def phase_k1(tag, call, plain_reps):
+def phase_k1(tag, call):
     from rt64tpu_torch.ops import tracer_cuda as tc
 
     return closest_hit_phase(tag, call, tc.trace_opaque_blocks,
-                             tc.trace_opaque_plain, FLOPS_K1, plain_reps)
+                             tc.trace_opaque_plain, FLOPS_K1)
 
 
-def phase_k2(tag, call, plain_reps):
+def phase_k2(tag, call):
     from rt64tpu_torch.ops import tracer_cuda as tc
 
     return occlusion_phase(tag, call, tc.trace_shadow_blocks,
-                           tc.trace_shadow_plain, FLOPS_K2, plain_reps)
+                           tc.trace_shadow_plain, FLOPS_K2)
 
 
 def phase_k1_k2_bounce():
     """K1 and K2 on the regrouped bounce launches of a castle GI
     1280x720 frame (the frame's last closest-hit and last occlusion
-    launches), after one settling draw."""
+    launches), after one settling draw. Also returns that frame's
+    framebuffer, drawn with max_reflections 0."""
     import torch
     from rt64tpu_torch.utils.castle_scene import build_castle_scene
 
@@ -382,15 +415,210 @@ def phase_k1_k2_bounce():
     view.max_reflections = 0
     dev.draw()  # settles the alpha boost ladder, fills the history
     seen = capture_launches(dev.draw)
+    fb = view.framebuffer().copy()  # phase_reflections' plain frame
     del dev, view
     calls = seen["trace_opaque_blocks"], seen["trace_shadow_blocks"]
     check(len(calls[0]) >= 2 and len(calls[1]) >= 2,
           f"the castle GI frame launched K1/K2 {[len(c) for c in calls]} times")
-    k1 = phase_k1("k1_bounce", calls[0][-1], plain_reps=0)
-    k2 = phase_k2("k2_bounce", calls[1][-1], plain_reps=0)
+    k1 = phase_k1("k1_bounce", calls[0][-1])
+    k2 = phase_k2("k2_bounce", calls[1][-1])
     del seen, calls
     torch.cuda.empty_cache()
-    return k1, k2
+    return k1, k2, fb
+
+
+def phase_reflections(plain_fb):
+    """The castle GI frame with two reflection bounces (bench config 4
+    at native size): one settling draw, one draw whose launches are
+    recorded, then REFL_FRAMES frames through Device.draw() with the
+    launch counts set to 0 just before and read just after. The recorded
+    draw's frame must differ from plain_fb, the same castle drawn as
+    often with max_reflections 0, on the pixels that seed a reflection
+    (refl_alpha > 0), and equal it elsewhere up to REFL_ELSEWHERE_TOL per
+    channel. Returns (row, the recorded launches)."""
+    import numpy as np
+    import torch
+    from rt64tpu_torch.pipeline import framegraph as fg
+    from rt64tpu_torch.utils.castle_scene import build_castle_scene
+
+    dev, _, view = build_castle_scene(GI_W, GI_H, di_samples=1,
+                                      gi_samples=1, denoiser=True)
+    view.max_reflections = REFL_BOUNCES
+    dev.draw()  # settles the alpha boost ladder, fills the history
+    seen = capture_launches(dev.draw)
+    fb = view.framebuffer().copy()
+    out, cfg = view._renderer._pick_src
+    check(cfg.max_reflections == REFL_BOUNCES,
+          f"the castle frame ran {cfg.max_reflections} reflection bounces")
+    moat = fg.to_image(cfg, out.gbuffers.refl_alpha > 0).cpu().numpy()
+    diff = np.abs(fb[..., :3].astype(np.int16)
+                  - plain_fb[..., :3].astype(np.int16)).max(axis=-1)
+    refl = out.reflection.abs().amax(dim=0)
+    seeds = out.gbuffers.refl_alpha > 0
+    compare = dict(
+        refl_pixels=int(moat.sum()),
+        moat_changed=float((diff[moat] > REFL_CHANGED_MIN).mean()),
+        moat_diff_mean=float(diff[moat].mean()),
+        elsewhere_within_tol=float((diff[~moat] <= REFL_ELSEWHERE_TOL).mean()),
+        elsewhere_equal=float((diff[~moat] == 0).mean()),
+        elsewhere_diff_max=int(diff[~moat].max()))
+    reflection = dict(
+        refl_alpha_fraction=float(seeds.float().mean()),
+        reflection_nonzero_on_seeds=float((refl[seeds] > 0).float().mean()),
+        reflection_max_off_seeds=float(refl[~seeds].max()),
+        reflection_mean_on_seeds=float(out.reflection[:, seeds].mean()),
+        reflection_max=float(refl.max()),
+        refl_alpha_mean_on_seeds=float(out.gbuffers.refl_alpha[seeds].mean()))
+    del out
+    frame_ms, counts, peak = draw_frames(dev, REFL_FRAMES)
+    row = frame_row("reflections", view, REFL_FRAMES, frame_ms, counts, peak)
+    row.update(width=GI_W, height=GI_H, max_reflections=REFL_BOUNCES,
+               elsewhere_tolerance=REFL_ELSEWHERE_TOL,
+               changed_threshold=REFL_CHANGED_MIN,
+               vs_max_reflections_0=compare, **reflection)
+    emit(row)
+    check_frame(row, view, GI_W, GI_H)
+    k1 = counts["opaque_launches"]
+    check(k1 >= 4 * REFL_FRAMES,
+          f"K1 launched {k1} times in {REFL_FRAMES} reflection frames (< 4 each)")
+    check(counts["opaque_mt_launches"] == 0 and counts["shadow_mt_launches"] == 0,
+          "the castle frame (below the size switch) launched K3 or K4")
+    check(0.0 < reflection["refl_alpha_fraction"] < 0.5,
+          f"refl_alpha > 0 on {reflection['refl_alpha_fraction']} of the pixels")
+    check(reflection["reflection_max_off_seeds"] == 0.0,
+          "the reflection plane is non-zero where no reflection was seeded")
+    check(reflection["reflection_nonzero_on_seeds"] > 0.5,
+          "the reflection plane is zero on the moat")
+    check(compare["moat_changed"] >= 0.5,
+          f"reflections changed {compare['moat_changed']} of the moat pixels")
+    check(compare["elsewhere_within_tol"] >= 0.999,
+          f"{1 - compare['elsewhere_within_tol']} of the pixels without a "
+          f"reflection differ by more than {REFL_ELSEWHERE_TOL}")
+    del dev, view
+    torch.cuda.empty_cache()
+    return row, seen
+
+
+def phase_k1_reflections(seen):
+    """K1 on the recorded castle-refl draw's two reflection launches (its
+    third and fourth closest-hit launches, after the primary and the GI
+    bounce): mirror rays from the moat, unregrouped, most lanes dead; the
+    second bounce may have no live ray at all."""
+    calls = seen["trace_opaque_blocks"]
+    check(len(calls) == 2 + REFL_BOUNCES,
+          f"the settled castle-refl draw launched K1 {len(calls)} times")
+    first = phase_k1("k1_refl1", calls[2])
+    first["last"] = phase_k1(f"k1_refl{REFL_BOUNCES}", calls[-1])
+    return first
+
+
+def phase_k3_reflection(seen):
+    """K3 on the first reflection launch of a recorded large-castle GI
+    1280x720 draw with two reflection bounces."""
+    from rt64tpu_torch.ops import tracer_cuda as tc
+
+    calls = seen["trace_opaque_mt_blocks"]
+    check(len(calls) == 2 + REFL_BOUNCES,
+          f"the large-castle reflection draw launched K3 {len(calls)} times")
+    row = closest_hit_phase("k3_refl1", calls[2], tc.trace_opaque_mt_blocks,
+                            tc.trace_opaque_mt_plain, FLOPS_K3)
+    row["launches_per_frame"] = len(calls)
+    return row
+
+
+def card_vs_cpu(build, frames, prepare=None):
+    """Draw a scene `frames` times on the card and on the CPU from the
+    same scene function; returns (SSIM of the last frames, the card's launch
+    counts, seconds per side)."""
+    from rt64tpu_torch.ops import tracer_cuda as tc
+    from rt64tpu_torch.utils.ssim import ssim
+
+    fbs, seconds = {}, {}
+    for where in ("cuda", "cpu"):
+        if where == "cuda":
+            tc.launch_counts.reset()
+        t0 = time.perf_counter()
+        dev, scene, view = build(where)
+        if prepare is not None:
+            prepare(scene)
+        for _ in range(frames):
+            dev.draw()
+        fbs[where] = view.framebuffer()
+        seconds[where] = time.perf_counter() - t0
+        if where == "cuda":
+            counts = dict(vars(tc.launch_counts))
+    return ssim(fbs["cuda"][..., :3], fbs["cpu"][..., :3]), counts, seconds
+
+
+def phase_secondary_small():
+    """Card against CPU, SSIM >= 0.99, on (a) the castle at 160x120 with
+    GI, the denoiser and two reflection bounces, two frames, and (b) the
+    sample scene with_glass at 160x120, gi_samples 1, two reflection
+    bounces, its glass sphere made translucent so that its refraction
+    rays live (K2 traces their one-light shadow rays)."""
+    from rt64tpu_torch.utils.castle_scene import build_castle_scene
+    from rt64tpu_torch.utils.testscenes import (build_sample_scene,
+                                                make_glass_translucent)
+
+    w, h = 160, 120
+
+    def castle(where):
+        dev, scene, view = build_castle_scene(w, h, di_samples=1, gi_samples=1,
+                                              denoiser=True, device=where)
+        view.max_reflections = REFL_BOUNCES
+        return dev, scene, view
+
+    s, counts, seconds = card_vs_cpu(castle, 2)
+    emit(dict(phase="refl_small_card_vs_cpu", width=w, height=h, frames=2,
+              max_reflections=REFL_BOUNCES, ssim=s, seconds=seconds, **counts))
+    check(s >= 0.99, f"castle reflection SSIM card vs CPU {s} < 0.99")
+    check(counts["opaque_launches"] >= 2 * (2 + REFL_BOUNCES),
+          f"two castle reflection frames launched K1 {counts}")
+
+    def glass(where):
+        dev, scene, view = build_sample_scene(w, h, di_samples=1, gi_samples=1,
+                                              with_glass=True, device=where)
+        view.max_reflections = REFL_BOUNCES
+        return dev, scene, view
+
+    s, counts, seconds = card_vs_cpu(glass, 1, prepare=make_glass_translucent)
+    emit(dict(phase="glass_small_card_vs_cpu", width=w, height=h, frames=1,
+              max_reflections=REFL_BOUNCES, ssim=s, seconds=seconds, **counts))
+    check(s >= 0.99, f"glass scene SSIM card vs CPU {s} < 0.99")
+    # primary, GI bounce, refraction, reflections; direct light, bounce
+    # light, refraction light
+    check(counts["opaque_launches"] >= 3 + REFL_BOUNCES
+          and counts["shadow_launches"] >= 3,
+          f"the glass frame launched K1/K2 {counts}")
+
+
+def phase_mip_lod():
+    """The minification floor of tests/test_miplod.py at 128x96 with
+    SHADER_MIP_LOD_ENABLED, card against CPU (SSIM >= 0.99), and the
+    dealiasing that test asserts, on the card: over the floor band the
+    flag cuts the pixel standard deviation below 0.35 of the flag-off
+    frame's and keeps the band mean within 0.02."""
+    import numpy as np
+    from rt64tpu_torch.utils.testscenes import build_mip_floor
+
+    s, counts, seconds = card_vs_cpu(
+        lambda where: build_mip_floor(True, device=where), 1)
+    frames = {}
+    for mip in (False, True):
+        dev, _, view = build_mip_floor(mip)
+        dev.draw()
+        frames[mip] = np.asarray(view.framebuffer()[..., :3], np.float64) / 255.0
+    band = slice(int(96 * 0.52), int(96 * 0.78))
+    std_off, std_on = float(frames[False][band].std()), float(frames[True][band].std())
+    mean_gap = abs(float(frames[True][band].mean()) - float(frames[False][band].mean()))
+    emit(dict(phase="mip_lod", width=128, height=96, ssim_card_vs_cpu=s,
+              band_std_off=std_off, band_std_on=std_on,
+              band_std_ratio=std_on / std_off, band_mean_gap=mean_gap,
+              seconds=seconds, **counts))
+    check(s >= 0.99, f"mip floor SSIM card vs CPU {s} < 0.99")
+    check(std_off > 0.03, f"the flag-off floor does not alias ({std_off})")
+    check(std_on < 0.35 * std_off, f"mip LOD band std {std_on} vs {std_off}")
+    check(mean_gap < 0.02, f"mip LOD moved the band mean by {mean_gap}")
 
 
 def same_rays_other_table(tag, prep_call, prep, wrapper, extra=()):
@@ -430,10 +658,10 @@ def phase_k3(seen):
     check(len(calls) >= 2, f"the large GI frame launched K3 {len(calls)} times")
     call = calls[0]
     row = closest_hit_phase("k3", call, tc.trace_opaque_mt_blocks,
-                            tc.trace_opaque_mt_plain, FLOPS_K3, plain_reps=3)
+                            tc.trace_opaque_mt_plain, FLOPS_K3)
     row["bounce"] = closest_hit_phase(
         "k3_bounce", calls[-1], tc.trace_opaque_mt_blocks,
-        tc.trace_opaque_mt_plain, FLOPS_K3, plain_reps=1)
+        tc.trace_opaque_mt_plain, FLOPS_K3)
     cull = call[0][5]
     k1, (_, tri_w, _, _, _) = same_rays_other_table(
         "k1_on_k3_rays", seen["prepare_opaque"][0], tc.prepare_opaque,
@@ -460,10 +688,10 @@ def phase_k4(seen):
     call = largest(calls)
     check(call is not calls[-1], "the bounce-shadow launch is the largest")
     row = occlusion_phase("k4", call, tc.trace_shadow_mt_blocks,
-                          tc.trace_shadow_mt_plain, FLOPS_K4, plain_reps=3)
+                          tc.trace_shadow_mt_plain, FLOPS_K4)
     row["bounce"] = occlusion_phase(
         "k4_bounce", calls[-1], tc.trace_shadow_mt_blocks,
-        tc.trace_shadow_mt_plain, FLOPS_K4, plain_reps=1)
+        tc.trace_shadow_mt_plain, FLOPS_K4)
     k2, bl_w = same_rays_other_table(
         "k2_on_k4_rays", largest(seen["prepare_shadow"]), tc.prepare_shadow,
         tc.trace_shadow_blocks)
@@ -582,24 +810,17 @@ def phase_gi_small():
     """GI and regrouping through K1/K2: the 16,384-bucket castle, two
     frames (the second reads history), card against CPU. 160x120 keeps
     the CPU side, which runs the plain twins, under a minute."""
-    from rt64tpu_torch.ops import tracer_cuda as tc
     from rt64tpu_torch.utils.castle_scene import build_castle_scene
-    from rt64tpu_torch.utils.ssim import ssim
 
     w, h = 160, 120
-    fbs, seconds = {}, {}
-    tc.launch_counts.reset()
-    for where in ("cuda", "cpu"):
-        t0 = time.perf_counter()
-        dev, _, view = build_castle_scene(w, h, di_samples=1, gi_samples=1,
-                                          denoiser=True, device=where)
+
+    def castle(where):
+        dev, scene, view = build_castle_scene(w, h, di_samples=1, gi_samples=1,
+                                              denoiser=True, device=where)
         view.max_reflections = 0
-        dev.draw()
-        dev.draw()
-        fbs[where] = view.framebuffer()
-        seconds[where] = time.perf_counter() - t0
-    counts = dict(vars(tc.launch_counts))
-    s = ssim(fbs["cuda"][..., :3], fbs["cpu"][..., :3])
+        return dev, scene, view
+
+    s, counts, seconds = card_vs_cpu(castle, 2)
     emit(dict(phase="gi_small_card_vs_cpu", width=w, height=h, frames=2,
               ssim=s, seconds=seconds, **counts))
     check(s >= 0.99, f"castle GI SSIM card vs CPU {s} < 0.99")
@@ -608,17 +829,15 @@ def phase_gi_small():
 
 
 def phase_sample():
-    from rt64tpu_torch.utils.ssim import ssim
     from rt64tpu_torch.utils.testscenes import build_sample_scene
 
-    fbs = {}
-    for where in ("cuda", "cpu"):
-        dev, _, view = build_sample_scene(320, 240, di_samples=1, gi_samples=0,
-                                          device=where)
+    def sample(where):
+        dev, scene, view = build_sample_scene(320, 240, di_samples=1,
+                                              gi_samples=0, device=where)
         view.max_reflections = 0
-        dev.draw()
-        fbs[where] = view.framebuffer()
-    s = ssim(fbs["cuda"][..., :3], fbs["cpu"][..., :3])
+        return dev, scene, view
+
+    s, _, _ = card_vs_cpu(sample, 1)
     emit(dict(phase="sample_card_vs_cpu", width=320, height=240, ssim=s))
     check(s >= 0.99, f"sample SSIM card vs CPU {s} < 0.99")
 
@@ -670,8 +889,8 @@ def run():
     seen = capture_launches(dev.draw)
     check(seen["trace_opaque_blocks"] and seen["trace_shadow_blocks"],
           "the castle frame launched no K1 or K2")
-    k1 = phase_k1("k1", seen["trace_opaque_blocks"][-1], plain_reps=5)
-    k2 = phase_k2("k2", seen["trace_shadow_blocks"][-1], plain_reps=5)
+    k1 = phase_k1("k1", seen["trace_opaque_blocks"][-1])
+    k2 = phase_k2("k2", seen["trace_shadow_blocks"][-1])
     del dev, view, seen
     torch.cuda.empty_cache()
 
@@ -682,16 +901,28 @@ def run():
     phase_sample()
 
     # 6b. K1 and K2 on a castle GI frame's bounce launches
-    k1["bounce"], k2["bounce"] = phase_k1_k2_bounce()
+    k1["bounce"], k2["bounce"], plain_fb = phase_k1_k2_bounce()
+
+    # 6c. the castle GI frame with two reflection bounces (bench config
+    # 4), and K1 on its reflection launches
+    refl, seen = phase_reflections(plain_fb)
+    k1["reflection"] = phase_k1_reflections(seen)
+    del seen, plain_fb
+    torch.cuda.empty_cache()
 
     # 7-8. K3 and K4 on a large-castle GI frame's own launches
     dev, view = build_large_castle()
     dev.draw()  # settles the alpha boost ladder, fills the history
     seen = capture_launches(dev.draw)
+    # 9b's draw: the same scene with two reflection bounces
+    view.max_reflections = REFL_BOUNCES
+    refl_seen = capture_launches(dev.draw)
     del dev, view
     k3 = phase_k3(seen)
     k4 = phase_k4(seen)
     del seen
+    k3["reflection"] = phase_k3_reflection(refl_seen)
+    del refl_seen
     torch.cuda.empty_cache()
 
     # 9. the large-scene GI path
@@ -701,23 +932,34 @@ def run():
     # 10. GI through K1/K2, card vs CPU
     phase_gi_small()
 
+    # 11. reflections and refraction, card vs CPU; mip LOD on the card
+    phase_secondary_small()
+    phase_mip_lod()
+
     measured = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     # Every kernel also carries its bounce launch's numbers, as
     # bounce_<key>. Every number of this line but bound_ms was measured in
     # this run (the earlier design's times stand on the phase lines, as
     # prev_ms).
-    kernel = lambda name, src, line, launches, row: dict(
+    # K1 and K3 also carry their first reflection launch's, as
+    # reflection_<key>, with the launches of the path that ran them: the
+    # 10 castle-refl frames (K1), the recorded large-castle-refl draw (K3).
+    kernel = lambda name, src, line, launches, row, refl_launches=None: dict(
         name=name, route="cuda", source=f"rt64tpu_torch/csrc/{src}",
         replaces=f"rt64tpu/ops/tracer_pallas.py:{line}", launches=launches,
         **{k: row[k] for k in measured}, library_ms=None,
-        **{f"bounce_{k}": row["bounce"][k] for k in measured})
+        **{f"bounce_{k}": row["bounce"][k] for k in measured},
+        **({} if refl_launches is None else dict(
+            reflection_launches=refl_launches,
+            **{f"reflection_{k}": row["reflection"][k] for k in measured})))
     emit({"kernels": [
         kernel("trace_opaque_walk<WoopClusters> (K1)", "packet_tracer.cu",
-               764, main["opaque_launches"], k1),
+               764, main["opaque_launches"], k1, refl["opaque_launches"]),
         kernel("trace_shadow_walk<WoopClusters> (K2)", "packet_tracer.cu",
                981, main["shadow_launches"], k2),
         kernel("trace_opaque_walk<MtClusters> (K3)", "mt_tracer.cu", 572,
-               large["opaque_mt_launches"], k3),
+               large["opaque_mt_launches"], k3,
+               k3["reflection"]["launches_per_frame"]),
         kernel("trace_shadow_walk<MtClusters> (K4)", "mt_tracer.cu", 1303,
                large["shadow_mt_launches"], k4),
     ]})

@@ -1,6 +1,7 @@
-"""Image-space stages — planar layout: the compose pass and the GI
-denoise filter. Motion blur, sharpening and the bilinear blits arrive
-with ROADMAP queue 1 item 12."""
+"""Image-space stages — planar layout: the compose pass (diffuse, direct
+and indirect light, the reflection and refraction planes, transparency)
+and the GI denoise filter. Motion blur, sharpening and the bilinear
+blits arrive with ROADMAP queue 1 item 12."""
 
 from __future__ import annotations
 

@@ -14,6 +14,7 @@ from typing import NamedTuple
 
 import torch
 
+from rt64tpu_torch.ops import raydiff
 from rt64tpu_torch.ops import texture as tex_ops
 from rt64tpu_torch.ops import vecmath as vm
 from rt64tpu_torch.ops.combiner import combiner_eval_planar
@@ -39,6 +40,9 @@ def shade_hits(
     bary_v,  # (M,)
     noise_rand,  # (M,) per-pixel random for opt_noise
     shadow_variant: bool = False,
+    mip_args=None,  # (t (M,), d_ddx (3, M), d_ddy (3, M)) camera-ray
+    # differentials for ray-diff mip LOD on the diffuse fetch; consulted
+    # only when the scene has mip-enabled instances (features.has_mips)
 ) -> HitShade:
     valid = tri >= 0
     tri_s = torch.clamp(tri, min=0).to(torch.int64)
@@ -105,10 +109,29 @@ def shade_hits(
     ok_t0 = use_t0 & valid & (gt[R.T_TEX_D] >= 0.0)
     d_off, d_w, d_h = rec_cols(0)
     feat = sb.features
-    if feat.has_mips:
-        raise NotImplementedError(
-            "mip-LOD shading (SHADER_MIP_LOD_ENABLED) arrives with "
-            "ROADMAP queue 1 item 10 (ops/raydiff.py, ops/mipmaps.py)"
+    if mip_args is not None and feat.has_mips and not shadow_variant:
+        # Ray-diff mip LOD (Ray.hlsli:37-94 + the SampleGrad call the
+        # reference makes with its mips compiled out,
+        # rt64_shader.cpp:474-480). Nearest-level selection keeps the
+        # fetch at one pool lookup; the quad entries give the in-level
+        # bilinear.
+        t_hit, d_ddx, d_ddy = mip_args
+        uv0 = torch.stack([gt[R.T_UV], gt[R.T_UV + 1]], 0)
+        uv1 = torch.stack([gt[R.T_UV + 2], gt[R.T_UV + 3]], 0)
+        uv2 = torch.stack([gt[R.T_UV + 4], gt[R.T_UV + 5]], 0)
+        duv_dx, duv_dy = raydiff.uv_differentials(
+            d_ddx, d_ddy, ray_dir, t_hit, e1, e2, tri_nrm, uv0, uv1, uv2
+        )
+        lod = raydiff.lod_from_duv(
+            duv_dx, duv_dy, d_w, d_h,
+            max_level=float(tex_ops.MAX_MIP_LEVELS - 1),
+        )
+        level = torch.where(
+            fl(R.F_MIP_LOD) & valid, torch.round(lod).to(torch.int32), 0
+        )
+        d_off, d_w, d_h = tex_ops.mip_select(
+            d_off.to(torch.int32), d_w.to(torch.int32), d_h.to(torch.int32),
+            level,
         )
     tex0 = tex_ops.sample_quad_cols(
         sb.quad_pool, d_off, d_w, d_h, ok_t0, uv_u, uv_v, filt, h_addr,

@@ -12,6 +12,11 @@ of the four fetched corners.
 
 Pool words are uint32 values held in int64 tensors: torch has no
 uint32 shifts, and int64 keeps every unpack exact.
+
+Mip chains are opt-in (SHADER_MIP_LOD_ENABLED, diffuse texture only):
+the reference builds its mip pass under ``#if 0``
+(rt64_device.cpp:758-762), so without the flag SampleGrad is bilinear
+level 0.
 """
 
 from __future__ import annotations
@@ -24,6 +29,34 @@ ADDR_MIRROR = 1
 ADDR_CLAMP = 2
 
 QPR = 32  # quads per wide pool row (the JAX package's layout)
+
+# Mip chains: level l lies in the pool right after level l-1's h*w
+# entries, dims halving (floor, min 1) until 1x1 or MAX_MIP_LEVELS —
+# the layout scene_buffers.pack_quad_pool bakes and mip_select derives.
+MAX_MIP_LEVELS = 8
+
+
+def mip_select(offset, w, h, level):
+    """Per-lane (offset, w, h) of mip level `level` from the LEVEL-0
+    record fields, by arithmetic (the chain layout is fixed, so no table
+    is read). Levels past the baked chain clamp to the last level.
+    offset/w/h: int tensors (N,) or scalars; level: (N,) int32 >= 0.
+    Returns three (N,) int32 tensors."""
+    dev = level.device
+    as_i32 = lambda a: torch.broadcast_to(
+        torch.as_tensor(a, device=dev).to(torch.int32), level.shape)
+    acc, cur_w, cur_h = as_i32(offset), as_i32(w), as_i32(h)
+    out_off, out_w, out_h = acc, cur_w, cur_h
+    for l in range(1, MAX_MIP_LEVELS):
+        has_level = (cur_w > 1) | (cur_h > 1)  # level l was baked
+        acc = acc + cur_w * cur_h
+        cur_w = torch.clamp(cur_w >> 1, min=1)
+        cur_h = torch.clamp(cur_h >> 1, min=1)
+        sel = (level >= l) & has_level
+        out_off = torch.where(sel, acc, out_off)
+        out_w = torch.where(sel, cur_w, out_w)
+        out_h = torch.where(sel, cur_h, out_h)
+    return out_off, out_w, out_h
 
 
 def _remap(x, size, mode):

@@ -159,13 +159,29 @@ def clusters_resident(num_triangles: int) -> bool:
             <= RESIDENT_TABLE_BYTES)
 
 
+def padded_to_clusters(scene: tracer.TraceScene, cs: int):
+    """The scene with its triangle arrays padded to a multiple of `cs`
+    by invalid triangles, which no ray hits: a scene bucket smaller than
+    a cluster (or not a multiple of one) still fills whole clusters, and
+    the ids of the real triangles do not change."""
+    pad = (-scene.num_triangles) % cs
+    if not pad:
+        return scene
+    ext = lambda a: torch.cat(
+        [a, torch.zeros(a.shape[:-1] + (pad,), dtype=a.dtype,
+                        device=a.device)], dim=-1)
+    return scene._replace(v0=ext(scene.v0), v1=ext(scene.v1),
+                          v2=ext(scene.v2), valid=ext(scene.valid),
+                          alpha=ext(scene.alpha), no_cull=ext(scene.no_cull),
+                          bias=ext(scene.bias))
+
+
 def build_cluster_boxes(scene: tracer.TraceScene, cs: int = K_CS):
     """Per-cluster AABBs of the opaque-class triangles at `cs`-triangle
-    granularity: (lo (3, T//cs), hi (3, T//cs)); clusters without an
-    opaque-class triangle get inverted (never-hit) boxes."""
-    t_total = scene.num_triangles
-    assert t_total % cs == 0, (t_total, cs)
-    nc = t_total // cs
+    granularity: (lo (3, nc), hi (3, nc)), nc = ceil(T / cs); clusters
+    without an opaque-class triangle get inverted (never-hit) boxes."""
+    scene = padded_to_clusters(scene, cs)
+    nc = scene.num_triangles // cs
     act = (scene.valid & ~scene.alpha)[None]
     lo = torch.minimum(torch.minimum(scene.v0, scene.v1), scene.v2)
     hi = torch.maximum(torch.maximum(scene.v0, scene.v1), scene.v2)
@@ -178,9 +194,8 @@ def build_cluster_data(scene: tracer.TraceScene):
     """Cluster-major Moller-Trumbore rows: (nc + 1, M_ROWS, CLUSTER_SIZE)
     f32 (v0, e1, e2, depth bias, active, no_cull per triangle) with the
     all-zero pad cluster last."""
-    t_total = scene.num_triangles
-    assert t_total % CLUSTER_SIZE == 0, (t_total, CLUSTER_SIZE)
-    nc = t_total // CLUSTER_SIZE
+    scene = padded_to_clusters(scene, CLUSTER_SIZE)
+    nc = scene.num_triangles // CLUSTER_SIZE
     active = (scene.valid & ~scene.alpha).to(torch.float32)
     rows = torch.cat([
         scene.v0, scene.v1 - scene.v0, scene.v2 - scene.v0,
@@ -203,9 +218,8 @@ def build_cluster_mats(scene: tracer.TraceScene):
     becomes |r_z| > thr with thr = 1e-9 / nn; a double-sided triangle
     stores -thr, an inactive or degenerate one +BIG and a zero
     transform."""
-    t_total = scene.num_triangles
-    assert t_total % K_CS == 0, (t_total, K_CS)
-    nc = t_total // K_CS
+    scene = padded_to_clusters(scene, K_CS)
+    nc = scene.num_triangles // K_CS
     v0 = scene.v0
     e1 = scene.v1 - scene.v0
     e2 = scene.v2 - scene.v0

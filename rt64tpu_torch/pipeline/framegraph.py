@@ -4,17 +4,19 @@ Reimplements View::render's pass DAG (rt64_view.cpp:1180-1667) as plain
 functions over device-resident planes:
 
     build tri rows (TLAS/BLAS refit analog)
-    -> primary (trace + shade + alpha resolve) -> batched shadow launch
+    -> primary (trace + shade + alpha resolve, ray-differential mip LOD
+       on opted-in diffuse textures) -> batched shadow launch
     -> direct -> indirect (1-bounce GI, reprojected history)
+    -> refraction -> reflection bounces (max_reflections)
     -> GI denoise filter -> compose
 
 All per-pixel data is planar ((C, N) / (C, H, W)) in the tile-swizzled
 pixel order, so each 512-ray block is an 8x64 screen tile. Raygen math
 mirrors the HLSL raygen shaders (citations inline).
 
-Reflections, refraction, the upscalers, motion blur, the raster layers
-and the debug views raise NotImplementedError naming the ROADMAP item
-that brings them.
+The upscalers, motion blur, the raster layers and the debug views raise
+NotImplementedError naming the ROADMAP item that brings them
+(check_slice).
 """
 
 from __future__ import annotations
@@ -25,7 +27,8 @@ from typing import NamedTuple
 import torch
 
 from rt64tpu_torch import descriptors as d
-from rt64tpu_torch.ops import bluenoise, filters, fog, lighting, sky, tracer
+from rt64tpu_torch.ops import (bluenoise, filters, fog, lighting, raydiff,
+                                sky, tracer)
 from rt64tpu_torch.ops import random as rnd
 from rt64tpu_torch.ops import shading as shade_ops
 from rt64tpu_torch.ops import tracer_cuda
@@ -167,9 +170,6 @@ def check_slice(sb: SceneBuffers, cfg: RenderConfig,
     """Raise for every feature the port does not render yet, naming the
     ROADMAP queue-1 item that brings it. Nothing is skipped silently."""
     todo = [
-        (cfg.max_reflections > 0,
-         "reflections (max_reflections > 0 with reflective materials)", 10),
-        (cfg.refraction_enabled, "refraction materials", 10),
         (cfg.upscaler != d.UPSCALER_OFF
          or (cfg.display_height, cfg.display_width)
          != (cfg.rt_height, cfg.rt_width),
@@ -179,7 +179,6 @@ def check_slice(sb: SceneBuffers, cfg: RenderConfig,
         (visualization_mode != 0, "debug visualization modes", 11),
         (sb.features.has_raster_bg or sb.raster_fg.shape[0] > 0,
          "raster background/foreground layers", 11),
-        (sb.features.has_mips, "mip-LOD shading", 10),
     ]
     for missing, what, item in todo:
         if missing:
@@ -382,7 +381,7 @@ def _scatter_carry(full, comp, mask):
 def _fold_shaded_slots(
     sb, tri_rows, trace_scene, origins, dirs, t_min, t_max, k_alpha,
     noise_rand, cfg, make_carry, slot_fn, cull_backface=True, aux=(),
-    regroup=None,
+    mip_diffs=None, regroup=None,
 ):
     """Trace, then fold slot_fn front-to-back over the K+1 ordered hit
     slots (alpha..., opaque last).
@@ -398,11 +397,17 @@ def _fold_shaded_slots(
     into coherent packet blocks before the opaque trace
     (tracer_cuda._regroup_order).
 
+    mip_diffs: optional (d_ddx, d_ddy) camera-ray differentials (3, N)
+    for ray-diff mip LOD, applied to the OPAQUE winner's diffuse fetch
+    only (alpha slots keep bilinear level 0: the compacted lanes drop the
+    pixel correspondence the differentials need).
+
     Returns (carry, dropped): dropped counts candidate alpha rays beyond
     the compaction capacity, so the view can grow the capacity.
     """
     n = dirs.shape[1]
     opaque_fn = tracer_cuda.make_opaque_fn(regroup=regroup)
+    mip_args = lambda t: None if mip_diffs is None else (t, *mip_diffs)
     # Candidate rays after the opaque-clamped alpha cull are a few
     # percent of a frame; n/16 leaves headroom and the boost ladder
     # (view.py) grows it on overflow.
@@ -430,6 +435,7 @@ def _fold_shaded_slots(
                                ac.mask)
         sh = shade_ops.shade_hits(
             sb, tri_rows, dirs, tri_op, uv_op[:, 0], uv_op[:, 1], noise_rand,
+            mip_args=mip_args(t_op),
         )
         return slot_fn(carry, sh, t_op, origins, dirs, aux), ac.dropped
 
@@ -441,7 +447,7 @@ def _fold_shaded_slots(
     )
     sh = shade_ops.shade_hits(
         sb, tri_rows, dirs, hits.tri_op, hits.uv_op[:, 0],
-        hits.uv_op[:, 1], noise_rand,
+        hits.uv_op[:, 1], noise_rand, mip_args=mip_args(hits.t_op),
     )
     carry = make_carry(origins, dirs, aux)
     return slot_fn(carry, sh, hits.t_op, origins, dirs, aux), hits.alpha_dropped
@@ -592,9 +598,28 @@ def primary_pass(
             st_inst, st_flow3, tl_stored, tl_tri, tl_pos, tl_nrm, tl_spec,
         )
 
+    mip_diffs = None
+    if sb.features.has_mips:
+        # Camera-ray direction differentials (Ray.hlsli:40-49). Like the
+        # reference (PrimaryRayGen.hlsl:36,59) they use a cameraUVW-basis
+        # direction: parallel to the traced projI-basis dir, but scaled
+        # consistently with cameraU/cameraV, which computeRayDiffs'
+        # dot(d, r) terms require.
+        w_, h_ = cfg.rt_width, cfg.rt_height
+        ndx = ((pix[:, 0].to(torch.float32) + 0.5 + gp.pixel_jitter[0])
+               / w_) * 2.0 - 1.0
+        ndy = ((pix[:, 1].to(torch.float32) + 0.5 + gp.pixel_jitter[1])
+               / h_) * 2.0 - 1.0
+        nn = (gp.camera_u[:, None] * ndx[None]
+              + gp.camera_v[:, None] * ndy[None]
+              + gp.camera_w[:, None])
+        mip_diffs = raydiff.compute_ray_diffs(
+            nn, gp.camera_u, gp.camera_v, (float(w_), float(h_)),
+        )
     carry, alpha_dropped = _fold_shaded_slots(
         sb, tri_rows, trace_scene, origins, dirs, t_min, t_max,
         cfg.k_primary, noise_rand, cfg, make_carry, slot_body,
+        mip_diffs=mip_diffs,
     )
 
     (res_a, res_rgb, res_transparent, trans_lit_sum, lock_acc,
@@ -875,6 +900,284 @@ def indirect_pass(
     return torch.where(active[None], out, fallback), dropped
 
 
+def _lit_secondary_fold(
+    sb, gp, cfg, tri_rows, trace_scene, origins, dirs, t_min, t_max,
+    noise_rand, fog_mode, store_any,
+):
+    """Fused trace+shade+resolve for refraction rays with the fog +
+    lighting split (RefractionRayGen.hlsl:63-110; the reflection pass
+    folds the same way with its own carry). fog_mode "camera" or
+    "origin". store_any: store every live hit (reflection,
+    ReflectionRayGen.hlsl:114-118) or only lit ones (refraction,
+    RefractionRayGen.hlsl:84-93)."""
+    dev = dirs.device
+    ambient3 = (gp.ambient_base + gp.ambient_no_gi)[:, None]
+
+    def make_carry(origins, dirs, aux):
+        m = dirs.shape[1]
+        z = lambda *s: torch.zeros(s, device=dev)
+        return (
+            torch.ones((m,), device=dev), z(3, m), z(3, m), z(3, m), z(3, m),
+            z(3, m), torch.zeros((m,), dtype=torch.int32, device=dev),
+            torch.full((m,), -1, dtype=torch.int32, device=dev),
+        )
+
+    def slot_body(carry, sh, t_s, origins, dirs, aux):
+        (res_a, res_rgb, res_transparent, res_pos, res_nrm, res_spec,
+         res_tri, res_inst) = carry
+        grow = sh.rows_t
+        mat = lambda off: grow[R.T_MAT + off]
+        flags = grow[R.T_FLAGS].to(torch.int32)
+        inst = sh.instance
+        valid = inst >= 0
+        ha = sh.color[3]
+        alpha_contrib = res_a * ha
+        live = valid & (alpha_contrib >= EPSILON) & (res_a > EPSILON)
+        hit_pos = origins + dirs * t_s[None]
+        if fog_mode == "camera":
+            fa = fog.fog_alpha_from_camera(
+                hit_pos, gp.view, gp.projection, mat(R.M_FOG_MUL),
+                mat(R.M_FOG_OFFSET),
+            )
+        else:
+            fa = fog.fog_alpha_from_origin(
+                hit_pos, origins, mat(R.M_FOG_MUL), mat(R.M_FOG_OFFSET)
+            )
+        fa = torch.where(mat(R.M_FOG_ENABLED) > 0.0, fa, 0.0)
+        fog_rgb = grow[R.T_MAT + R.M_FOG_COLOR : R.T_MAT + R.M_FOG_COLOR + 3]
+        res_transparent = res_transparent + torch.where(
+            live[None], fog_rgb * (fa * alpha_contrib)[None], 0.0
+        )
+        alpha_contrib = alpha_contrib * (1.0 - fa)
+        color_add = sh.color[:3] * alpha_contrib[None]
+        uses_l = ((flags & R.F_HAS_LIGHTING) != 0) & valid
+        lit = live & uses_l
+        self_l = grow[R.T_MAT + R.M_SELF_LIGHT : R.T_MAT + R.M_SELF_LIGHT + 3]
+        res_rgb = res_rgb + torch.where(lit[None], color_add, 0.0)
+        res_transparent = res_transparent + torch.where(
+            (live & ~uses_l)[None], color_add * (ambient3 + self_l), 0.0
+        )
+        spec = grow[R.T_MAT + R.M_SPECULAR : R.T_MAT + R.M_SPECULAR + 3] * sh.specular
+        store = live if store_any else lit
+        res_pos = torch.where(store[None], hit_pos, res_pos)
+        res_nrm = torch.where(store[None], sh.normal, res_nrm)
+        res_spec = torch.where(store[None], spec, res_spec)
+        res_tri = torch.where(store, sh.tri.to(torch.int32), res_tri)
+        res_inst = torch.where(store, inst, res_inst)
+        res_a = torch.where(live, res_a * (1.0 - ha), res_a)
+        return (res_a, res_rgb, res_transparent, res_pos, res_nrm, res_spec,
+                res_tri, res_inst)
+
+    ((res_a, res_rgb, res_transparent, res_pos, res_nrm, res_spec, res_tri,
+      res_inst), dropped) = _fold_shaded_slots(
+        sb, tri_rows, trace_scene, origins, dirs, t_min, t_max,
+        cfg.k_secondary, noise_rand, cfg, make_carry, slot_body,
+    )
+    res_row = _row_of(tri_rows, res_tri, res_inst >= 0)
+    return (res_rgb, res_a, res_pos, res_nrm, res_spec, res_inst, res_row,
+            res_transparent, dropped)
+
+
+def _refract(d, n, eta):
+    """HLSL refract(i, n, eta) with a non-normalized i, as the reference
+    calls it (bug-compatible); a total internal reflection gives 0."""
+    ndi = vm.dot(n, d)
+    k = 1.0 - eta * eta * (1.0 - ndi * ndi)
+    out = d * eta[None] - n * (eta * ndi + torch.sqrt(torch.clamp(k, min=0.0)))[None]
+    return torch.where((k >= 0.0)[None], out, 0.0)
+
+
+def refraction_pass(
+    sb, tri_rows, trace_scene, cfg, gp, g: GBuffers, pix, bn_table,
+    noise_rand, bg_color,
+):
+    """RefractionRayGen.hlsl:17-117. Returns ((3, N), alpha-drop count).
+
+    bg_color is the (3, N) screen-space background+sky fallback the
+    refracted miss reads (RefractionRayGen.hlsl:30-36), the same sample
+    render_frame computed for the primary pass. Pixels that seeded no
+    refraction ride as dead rays (empty trace intervals). Neither trace
+    is regrouped, as in the JAX package."""
+    n = g.instance.shape[0]
+    active = (g.instance >= 0) & (g.refr_alpha > EPSILON)
+    ray_dir = _refract(g.view_dir, g.normal, g.row[R.CTX_REFRACTION])
+
+    t_min = torch.full((n,), tracer.RAY_MIN_DISTANCE, device=ray_dir.device)
+    t_max = torch.where(active, tracer.RAY_MAX_DISTANCE, -1.0)
+    (rgb, res_a, pos, nrm, spec, inst, row, transparent,
+     fold_drop) = _lit_secondary_fold(
+        sb, gp, cfg, tri_rows, trace_scene, g.position, ray_dir, t_min,
+        t_max, noise_rand, fog_mode="camera", store_any=False,
+    )
+    ctx = lighting.ctx_from_rows(row, inst >= 0)
+    direct, li_drop = lighting.compute_lights_random(
+        sb, tri_rows, trace_scene, pix, bn_table, gp.frame_count,
+        ray_dir, pos, nrm, spec, ctx,
+        max_light_count=1, di_samples=cfg.di_samples, check_shadows=True,
+        noise_rand=noise_rand, shadow_k_alpha=cfg.k_shadow,
+        opaque_fn=tracer_cuda.make_shadow_opaque_fn(),
+        alpha_compact=max(1024, (n // 32) * cfg.alpha_shade_boost),
+        shade_boost=cfg.alpha_shade_boost,
+    )
+    ambient3 = (gp.ambient_base + gp.ambient_no_gi)[:, None]
+    rgb = torch.where((inst >= 0)[None],
+                      rgb * (ambient3 + direct + ctx.self_light), rgb)
+    rgb = rgb + bg_color * res_a[None] + transparent
+    return (torch.where(active[None], rgb * g.refr_alpha[None], 0.0),
+            fold_drop + li_drop)
+
+
+class ReflectionState(NamedTuple):
+    """The shading state one reflection bounce reads and rewrites for
+    the next (ReflectionRayGen.hlsl:117-124)."""
+
+    rgb: torch.Tensor  # (3, N) accumulated reflection
+    alpha: torch.Tensor  # (N,) weight of the next bounce
+    position: torch.Tensor  # (3, N)
+    view_dir: torch.Tensor  # (3, N)
+    normal: torch.Tensor  # (3, N)
+    instance: torch.Tensor  # (N,) int32
+    row: torch.Tensor  # (R.CTXROW, N)
+
+
+def reflection_pass(
+    sb, tri_rows, trace_scene, cfg, gp, state: ReflectionState, pix,
+    bn_table, noise_rand,
+):
+    """One ReflectionRayGen iteration (ReflectionRayGen.hlsl:25-143),
+    looped max_reflections times (rt64_view.cpp:1417-1436). Returns
+    (the next ReflectionState, alpha-drop count). Mirror rays are traced
+    unregrouped, as in the JAX package; pixels with no reflection left
+    ride as dead rays."""
+    refl_rgb, refl_a, sh_pos, view_dir, sh_nrm, inst_id, sh_row = state
+    n = inst_id.shape[0]
+    dev = inst_id.device
+    active = (inst_id >= 0) & (refl_a > EPSILON)
+    ray_dir = vm.reflect(view_dir, sh_nrm)
+
+    bg = _background_env(ray_dir)
+    sky_c = sky.sample_sky_plane(
+        sb.quad_pool, sb.quad_records, gp.sky_plane_rec, ray_dir,
+        gp.sky_yaw_offset, gp.sky_diffuse_mult, gp.sky_hsl_mod,
+    )
+    bg = bg * (1.0 - sky_c[3])[None] + sky_c[:3] * sky_c[3][None]
+
+    t_min = torch.full((n,), tracer.RAY_MIN_DISTANCE, device=dev)
+    t_max = torch.where(active, tracer.RAY_MAX_DISTANCE, -1.0)
+
+    ambient3 = (gp.ambient_base + gp.ambient_no_gi)[:, None]
+    # Bug-compatible: the fresnel multiplier reads the *primary* pixel's
+    # material (ReflectionRayGen.hlsl:100). It and the incoming
+    # reflection weight are per pixel, so they ride the fold's aux
+    # gather into compacted space.
+    primary_fresnel = sh_row[R.CTX_REFL_FRESNEL]
+
+    def make_carry(origins, dirs, aux):
+        m = dirs.shape[1]
+        z = lambda *s: torch.zeros(s, device=dev)
+        return (
+            torch.ones((m,), device=dev), z(3, m), z(3, m), z(3, m), z(3, m),
+            z(3, m), torch.zeros((m,), dtype=torch.int32, device=dev),
+            torch.full((m,), -1, dtype=torch.int32, device=dev), z(m),
+        )
+
+    def slot_body(carry, sh, t_s, origins, dirs, aux):
+        (res_a, res_rgb, res_transparent, res_pos, res_nrm, res_spec,
+         res_tri, res_inst, new_refl_a) = carry
+        w_in, fresnel_mult = aux
+        grow = sh.rows_t
+        mat = lambda off: grow[R.T_MAT + off]
+        flags = grow[R.T_FLAGS].to(torch.int32)
+        inst = sh.instance
+        valid = inst >= 0
+        ha = sh.color[3]
+        alpha_contrib = res_a * ha
+        live = valid & (alpha_contrib >= EPSILON) & (res_a > EPSILON)
+        hit_pos = origins + dirs * t_s[None]
+        fa = torch.where(
+            mat(R.M_FOG_ENABLED) > 0.0,
+            fog.fog_alpha_from_origin(
+                hit_pos, origins, mat(R.M_FOG_MUL), mat(R.M_FOG_OFFSET)
+            ),
+            0.0,
+        )
+        fog_rgb = grow[R.T_MAT + R.M_FOG_COLOR : R.T_MAT + R.M_FOG_COLOR + 3]
+        res_transparent = res_transparent + torch.where(
+            live[None], fog_rgb * (fa * alpha_contrib)[None], 0.0
+        )
+        alpha_contrib = alpha_contrib * (1.0 - fa)
+
+        hit_refl = mat(R.M_REFLECTION)
+        has_refl = live & (hit_refl > EPSILON)
+        fres = _fresnel(sh.normal, dirs, hit_refl, fresnel_mult)
+        new_refl_a = new_refl_a + torch.where(
+            has_refl, fres * alpha_contrib * w_in, 0.0
+        )
+
+        color_add = sh.color[:3] * alpha_contrib[None]
+        uses_l = ((flags & R.F_HAS_LIGHTING) != 0) & valid
+        lit = live & uses_l
+        self_l = grow[R.T_MAT + R.M_SELF_LIGHT : R.T_MAT + R.M_SELF_LIGHT + 3]
+        res_rgb = res_rgb + torch.where(lit[None], color_add, 0.0)
+        res_transparent = res_transparent + torch.where(
+            (live & ~uses_l)[None], color_add * (ambient3 + self_l), 0.0
+        )
+        spec = grow[R.T_MAT + R.M_SPECULAR : R.T_MAT + R.M_SPECULAR + 3] * sh.specular
+        res_pos = torch.where(live[None], hit_pos, res_pos)
+        res_nrm = torch.where(live[None], sh.normal, res_nrm)
+        res_spec = torch.where(live[None], spec, res_spec)
+        res_tri = torch.where(live, sh.tri.to(torch.int32), res_tri)
+        res_inst = torch.where(live, inst, res_inst)
+        res_a = torch.where(live, res_a * (1.0 - ha), res_a)
+        return (res_a, res_rgb, res_transparent, res_pos, res_nrm, res_spec,
+                res_tri, res_inst, new_refl_a)
+
+    ((res_a, res_rgb, res_transparent, res_pos, res_nrm, res_spec, res_tri,
+      res_inst, new_refl_a), refl_dropped) = _fold_shaded_slots(
+        sb, tri_rows, trace_scene, sh_pos, ray_dir, t_min, t_max,
+        cfg.k_secondary, noise_rand, cfg, make_carry, slot_body,
+        aux=(refl_a, primary_fresnel),
+    )
+
+    res_row = _row_of(tri_rows, res_tri, res_inst >= 0)
+    # Lighting at the final hit (checkShadows=false,
+    # ReflectionRayGen.hlsl:125-132) and the shading-state write-back.
+    ctx = lighting.ctx_from_rows(res_row, res_inst >= 0)
+    direct, li_drop = lighting.compute_lights_random(
+        sb, tri_rows, trace_scene, pix, bn_table, gp.frame_count,
+        ray_dir, res_pos, res_nrm, res_spec, ctx,
+        max_light_count=1, di_samples=cfg.di_samples, check_shadows=False,
+        noise_rand=noise_rand, shadow_k_alpha=cfg.k_shadow,
+    )
+    got = res_inst >= 0
+    res_rgb = torch.where(
+        got[None], res_rgb * (ambient3 + direct + ctx.self_light), res_rgb
+    )
+    upd = active & got
+    sh_pos = torch.where(upd[None], res_pos, sh_pos)
+    view_dir = torch.where(upd[None], ray_dir, view_dir)
+    sh_nrm = torch.where(upd[None], res_nrm, sh_nrm)
+    inst_id = torch.where(upd, res_inst, inst_id)
+    sh_row = torch.where(upd[None], res_row, sh_row)
+
+    # Background blend + artificial shine (ReflectionRayGen.hlsl:134-143).
+    res_rgb = res_rgb + bg * res_a[None] + res_transparent
+    shine = sh_row[R.CTX_REFL_SHINE]
+    highlight = vm.splat((1.0, 1.05, 1.2), res_rgb)
+    shadow_c = vm.splat((0.1, 0.05, 0.0), res_rgb)
+    up_amt = torch.pow(torch.clamp(ray_dir[1], min=0.0) * shine, 3.0)[None]
+    dn_amt = torch.pow(torch.clamp(-ray_dir[1], min=0.0) * shine, 3.0)[None]
+    res_rgb = res_rgb * (1.0 - up_amt) + highlight * up_amt
+    res_rgb = res_rgb * (1.0 - dn_amt) + shadow_c * dn_amt
+
+    add = res_rgb * refl_a[None] * torch.clamp(1.0 - new_refl_a, 0.0, 1.0)[None]
+    refl_rgb = refl_rgb + torch.where(active[None], add, 0.0)
+    refl_a = torch.where(active, torch.clamp(new_refl_a, 0.0, 1.0), refl_a)
+    return (ReflectionState(refl_rgb, refl_a, sh_pos, view_dir, sh_nrm,
+                            inst_id, sh_row),
+            refl_dropped + li_drop)
+
+
 def render_frame(
     sb: SceneBuffers,
     gp: GlobalParams,
@@ -956,7 +1259,25 @@ def render_frame(
         sb, tri_rows, trace_scene, cfg, gp, g, history, pix, bn, noise_rand,
     )
     alpha_dropped = alpha_dropped + i_drop
-    zeros3 = torch.zeros((3, n), device=dev)
+    if cfg.refraction_enabled:
+        refraction_rgb, r_drop = refraction_pass(
+            sb, tri_rows, trace_scene, cfg, gp, g, pix, bn, noise_rand,
+            bg_color,
+        )
+        alpha_dropped = alpha_dropped + r_drop
+    else:
+        refraction_rgb = torch.zeros((3, n), device=dev)
+    refl = ReflectionState(
+        torch.zeros((3, n), device=dev), g.refl_alpha, g.position,
+        g.view_dir, g.normal, g.instance, g.row,
+    )
+    # Each bounce reads the state the last one wrote
+    # (rt64_view.cpp:1417-1436).
+    for _ in range(cfg.max_reflections):
+        refl, rf_drop = reflection_pass(
+            sb, tri_rows, trace_scene, cfg, gp, refl, pix, bn, noise_rand,
+        )
+        alpha_dropped = alpha_dropped + rf_drop
 
     # DI denoise is compiled out in the reference (rt64_view.cpp:1439-1443).
     filtered_direct = direct_accum[:3]
@@ -969,7 +1290,7 @@ def render_frame(
         filtered_indirect = indirect_accum[:3]
     rt_rgb = to_image(cfg, filters.compose(
         g.diffuse_rgb, g.diffuse_a, filtered_direct, filtered_indirect,
-        zeros3, zeros3, g.transparent,
+        refl.rgb, refraction_rgb, g.transparent,
     ))
 
     return FrameOutputs(
@@ -981,8 +1302,8 @@ def render_frame(
         indirect_accum=indirect_accum,
         filtered_direct=filtered_direct,
         filtered_indirect=filtered_indirect,
-        reflection=zeros3,
-        refraction=zeros3,
+        reflection=refl.rgb,
+        refraction=refraction_rgb,
         rt_output=rt_rgb,
         alpha_dropped=alpha_dropped,
     )

@@ -9,7 +9,8 @@ Everything packs into wide rows (pipeline/rows.py):
   * texture epoch: the *quad pool* — every (texture, addressing) combo
     used by the scene gets sampling-ready entries holding the texel and
     its +x/+y/+xy neighbors under that addressing mode, so a bilinear
-    fetch reads one quad.
+    fetch reads one quad; a diffuse texture of a mip-LOD shader gets its
+    whole mip chain (texture.mip_select's layout).
   * per frame: instance rows (transforms, materials, combiner, light
     eligibility) and lights — the upload-heap analog.
 
@@ -30,6 +31,7 @@ from rt64tpu_torch.api import LIGHT_WIDTH, Instance, Texture
 from rt64tpu_torch.limits import SceneLimits, _next_bucket
 from rt64tpu_torch.ops import texture as tex_ops
 from rt64tpu_torch.ops.combiner import SHADER_0, SHADER_TEXEL0A
+from rt64tpu_torch.ops.mipmaps import generate_mips
 from rt64tpu_torch.pipeline import rows as R
 
 # Raster-layer row width (rt64tpu/ops/raster.py RR_WIDTH): the packed
@@ -156,7 +158,7 @@ class ScenePacker:
         self._geometry_key = None
         self._quad_key = None
         self._np: dict = {}
-        self._combo_ids: dict = {}  # (tex_id, h, v) -> record index
+        self._combo_ids: dict = {}  # (tex_id, h, v, mip) -> record index
         self._row_cache: dict = {}
         self._dev_quads = None
         self._sky_dense_key = "unset"
@@ -169,8 +171,8 @@ class ScenePacker:
 
     # -- texture quad pool ---------------------------------------------------
     def pack_quad_pool(self, instances: List[Instance]):
-        """Collect every (texture, hAddr, vAddr) combo in use and build
-        the sampling-ready pool."""
+        """Collect every (texture, hAddr, vAddr, mip) combo in use and
+        build the sampling-ready pool."""
         lm = self.limits
         combos = []
         seen = set()
@@ -178,21 +180,20 @@ class ScenePacker:
             sh = inst.desc.shader
             if sh is None:
                 continue
-            if sh.mip_lod_enabled and inst.desc.diffuse_texture is not None:
-                raise NotImplementedError(
-                    "mip-mapped diffuse sampling (SHADER_MIP_LOD_ENABLED) "
-                    "arrives with ROADMAP queue 1 item 10"
-                )
+            # Only the diffuse fetch is mip-filtered (the ray-diff LOD
+            # drives tex0; normal/spec/alt maps stay level 0 like the
+            # reference's SampleGrad call sites, rt64_shader.cpp:474-545).
             texes = (inst.desc.diffuse_texture, inst.desc.normal_texture,
                      inst.desc.specular_texture, inst.desc.alt_texture)
-            for tex in texes:
+            for j, tex in enumerate(texes):
                 if tex is None:
                     continue
-                key = (id(tex), sh.h_addr, sh.v_addr)
+                mip = sh.mip_lod_enabled and j == 0
+                key = (id(tex), sh.h_addr, sh.v_addr, mip)
                 if key not in seen:
                     seen.add(key)
-                    combos.append((tex, sh.h_addr, sh.v_addr))
-        key = tuple((id(t), h, v) for t, h, v in combos)
+                    combos.append((tex, sh.h_addr, sh.v_addr, mip))
+        key = tuple((id(t), h, v, mp) for t, h, v, mp in combos)
         if key == self._quad_key:
             return
         pool = np.zeros((lm.texel_pool, 4), np.uint32)
@@ -200,13 +201,21 @@ class ScenePacker:
         self._combo_ids = {}
         offset = 0
         rec = 0
-        for tex, h_addr, v_addr in combos:
-            n = tex.width * tex.height
+        for tex, h_addr, v_addr, mip in combos:
+            levels = (generate_mips(tex.rgba, max_levels=tex_ops.MAX_MIP_LEVELS)
+                      if mip else [tex.rgba])
+            n = sum(lv.shape[0] * lv.shape[1] for lv in levels)
             if offset + n > lm.texel_pool or rec >= lm.max_textures:
                 raise ValueError("quad pool exhausted; grow SceneLimits")
-            pool[offset : offset + n] = build_quad_entries(tex.rgba, h_addr, v_addr)
+            # Chain layout (texture.mip_select): level l starts right
+            # after level l-1's h*w entries.
+            o = offset
+            for lv in levels:
+                ln = lv.shape[0] * lv.shape[1]
+                pool[o : o + ln] = build_quad_entries(lv, h_addr, v_addr)
+                o += ln
             records[rec] = (offset, tex.width, tex.height)
-            self._combo_ids[(id(tex), h_addr, v_addr)] = rec
+            self._combo_ids[(id(tex), h_addr, v_addr, mip)] = rec
             offset += n
             rec += 1
         self._next_rec = rec
@@ -220,7 +229,8 @@ class ScenePacker:
         """Record id for a wrap/wrap env/sky texture (added on demand)."""
         if tex is None:
             return -1
-        key = (id(tex), d.SHADER_ADDRESSING_WRAP, d.SHADER_ADDRESSING_WRAP)
+        key = (id(tex), d.SHADER_ADDRESSING_WRAP, d.SHADER_ADDRESSING_WRAP,
+               False)
         if key in self._combo_ids:
             return self._combo_ids[key]
         n = tex.width * tex.height
@@ -428,12 +438,14 @@ class ScenePacker:
                 )
                 irows[ii, R.I_INPUT_COUNT] = float(cc.input_count)
 
-                def rec_id(tex):
+                def rec_id(tex, mip=False):
                     if tex is None:
                         return -1
-                    return self._combo_ids.get((id(tex), sh.h_addr, sh.v_addr), -1)
+                    return self._combo_ids.get(
+                        (id(tex), sh.h_addr, sh.v_addr, mip), -1)
 
-                irows[ii, R.I_TEX_D] = rec_id(de.diffuse_texture)
+                irows[ii, R.I_TEX_D] = rec_id(de.diffuse_texture,
+                                              sh.mip_lod_enabled)
                 irows[ii, R.I_TEX_N] = rec_id(de.normal_texture)
                 irows[ii, R.I_TEX_S] = rec_id(de.specular_texture)
                 irows[ii, R.I_TEX_D2] = rec_id(de.alt_texture)
@@ -496,7 +508,7 @@ class ScenePacker:
                 quad_records=self._up(self._np["quad_records"]),
             )
         # Scene-wide feature summary (ShadeFeatures docstring).
-        has_nmap = has_smap = has_t1 = has_lit_tl = False
+        has_nmap = has_smap = has_t1 = has_mips = has_lit_tl = False
         for inst in instances[:I]:
             sh = inst.desc.shader
             if sh is None:
@@ -507,6 +519,8 @@ class ScenePacker:
                 has_smap = True
             if sh.combiner.use_textures[1] and inst.desc.alt_texture is not None:
                 has_t1 = True
+            if sh.mip_lod_enabled and inst.desc.diffuse_texture is not None:
+                has_mips = True
             # Conservative: lit + alpha-class + alpha not binarized
             # (texture_edge clamps hit alpha to {0, 1}).
             if (inst.desc.material.light_group_mask_bits != 0
@@ -519,7 +533,7 @@ class ScenePacker:
             has_specular_maps=has_smap,
             has_texel1=has_t1,
             has_lit_transparent=has_lit_tl,
-            has_mips=False,
+            has_mips=has_mips,
             has_raster_bg=False,
         )
         dev = self.device

@@ -3,14 +3,20 @@ through Device.draw() with torch.profiler and print one JSON line.
 
     python3 -m rt64tpu_torch.utils.frame_profile [--width 640 --height 480 --frames 5]
     python3 -m rt64tpu_torch.utils.frame_profile --config large-gi
+    python3 -m rt64tpu_torch.utils.frame_profile --config castle-refl
 
 --config castle (the default) is the castle frame without GI; large-gi
 is the large castle (terrain_n 128, beyond the packet tracer's size
-switch) at 1280x720 with gi_samples 1 and the denoiser.
+switch) at 1280x720 with gi_samples 1 and the denoiser; castle-gi is the
+castle at 1280x720 with gi_samples 1 and the denoiser; castle-refl is
+castle-gi with two reflection bounces (bench config 4 at native size).
+All but castle-refl draw with max_reflections 0.
 
-Reports the median wall time per frame, the summed device-kernel time
-per frame (and so the device's idle share), the kernel launch count per
-frame, and the kernels with the most device time. Needs a CUDA card.
+Reports the median wall time per frame without the profiler and under
+it, the summed device-kernel time per frame (and so the device's idle
+share, against the profiled frames' wall time), the kernel launch count
+per frame, the peak device memory and the kernels with the most device
+time. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -22,11 +28,13 @@ import subprocess
 import time
 
 
-# name -> ((width, height), build_castle_scene keywords)
+# name -> ((width, height), build_castle_scene keywords, max_reflections)
 CONFIGS = {
-    "castle": ((640, 480), dict(gi_samples=0)),
+    "castle": ((640, 480), dict(gi_samples=0), 0),
     "large-gi": ((1280, 720),
-                 dict(gi_samples=1, denoiser=True, terrain_n=128)),
+                 dict(gi_samples=1, denoiser=True, terrain_n=128), 0),
+    "castle-gi": ((1280, 720), dict(gi_samples=1, denoiser=True), 0),
+    "castle-refl": ((1280, 720), dict(gi_samples=1, denoiser=True), 2),
 }
 
 
@@ -46,15 +54,23 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("frame_profile needs a CUDA card")
 
-    (width, height), scene_kw = CONFIGS[args.config]
+    (width, height), scene_kw, reflections = CONFIGS[args.config]
     args.width = args.width or width
     args.height = args.height or height
     dev, _, view = build_castle_scene(args.width, args.height, di_samples=1,
                                       **scene_kw)
-    view.max_reflections = 0
+    view.max_reflections = reflections
     for _ in range(2):  # warm up: kernel build, boost ladder, allocator
         dev.draw()
     torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    plain = []
+    for _ in range(args.frames):
+        t0 = time.perf_counter()
+        dev.draw()
+        torch.cuda.synchronize()
+        plain.append((time.perf_counter() - t0) * 1e3)
 
     wall = []
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -80,10 +96,13 @@ def main(argv=None):
     frame_ms = statistics.median(wall)
     print(json.dumps(dict(
         card=smi, config=args.config, width=args.width, height=args.height,
-        frames=args.frames,
+        max_reflections=reflections, frames=args.frames,
+        frame_ms_median_unprofiled=statistics.median(plain),
+        frame_ms_unprofiled=plain,
         frame_ms_median=frame_ms, device_kernel_ms_per_frame=device_ms,
         device_idle_share=max(0.0, 1.0 - device_ms / frame_ms),
         kernel_launches_per_frame=len(kernels) / args.frames,
+        max_memory_allocated=torch.cuda.max_memory_allocated(),
         top_kernels=[dict(name=n[:120], ms_per_frame=t, launches=c // args.frames)
                      for n, (t, c) in top],
     )))

@@ -1,6 +1,6 @@
 """Time the packet-traversal kernels of two trees on the same launches.
 
-    python3 -m rt64tpu_torch.utils.kernel_times capture LAUNCHES
+    python3 -m rt64tpu_torch.utils.kernel_times capture LAUNCHES [--config castle-refl]
     python3 rt64tpu_torch/utils/kernel_times.py time LAUNCHES --root DIR \\
         --tag NAME [--outputs FILE]
     python3 -m rt64tpu_torch.utils.kernel_times compare FILE FILE
@@ -14,6 +14,13 @@ calls and saves eight launches with their inputs (torch.save):
     (its last closest-hit and last occlusion launch);
   k3, k3_bounce, k4, k4_bounce: the large-castle GI frame's primary,
     bounce, direct-light shadow and bounce-shadow launches.
+These frames draw with max_reflections 0. capture --config castle-refl
+saves the reflection launches instead, of the two GI frames drawn with
+max_reflections 2 (bench config 4 at native size):
+  k1_refl1, k1_refl2: the castle GI frame's first and second reflection
+    bounces (its third and fourth closest-hit launches, after the
+    primary and the regrouped GI bounce);
+  k3_refl1: the large-castle GI frame's first reflection bounce.
 time imports rt64tpu_torch from --root (a checkout of any tree, e.g. an
 older commit unpacked with git archive), builds that tree's kernels and
 times its wrappers on the saved launches (CUDA events around each call,
@@ -45,15 +52,17 @@ WRAPPERS = {"k1": "trace_opaque_blocks", "k2": "trace_shadow_blocks",
 FLOPS = {"k1": "FLOPS_K1", "k2": "FLOPS_K2", "k3": "FLOPS_K3", "k4": "FLOPS_K4"}
 
 
-def _capture(path):
+def _capture(path, config):
     import torch
 
     from rt64tpu_torch.ops import tracer_cuda as tc
     from rt64tpu_torch.utils.castle_scene import build_castle_scene
 
+    reflections = 2 if config == "castle-refl" else 0
+
     def launches_of(width, height, **kw):
         dev, _, view = build_castle_scene(width, height, di_samples=1, **kw)
-        view.max_reflections = 0
+        view.max_reflections = reflections
         dev.draw()  # settles the alpha boost ladder, fills the history
         seen = {k: [] for k in WRAPPERS}
         originals = {k: getattr(tc, name) for k, name in WRAPPERS.items()}
@@ -76,13 +85,26 @@ def _capture(path):
 
     largest = lambda calls: max(calls, key=lambda c: c[0][0].shape[1])
     out = {}
-    seen = launches_of(640, 480, gi_samples=0)
-    out["k1"], out["k2"] = seen["k1"][-1], seen["k2"][-1]
-    seen = launches_of(1280, 720, gi_samples=1, denoiser=True)
-    out["k1_bounce"], out["k2_bounce"] = seen["k1"][-1], seen["k2"][-1]
-    seen = launches_of(1280, 720, gi_samples=1, denoiser=True, terrain_n=128)
-    out["k3"], out["k3_bounce"] = seen["k3"][0], seen["k3"][-1]
-    out["k4"], out["k4_bounce"] = largest(seen["k4"]), seen["k4"][-1]
+    if reflections:
+        # primary, GI bounce, then one launch per reflection bounce
+        seen = launches_of(1280, 720, gi_samples=1, denoiser=True)
+        if len(seen["k1"]) != 4:
+            raise SystemExit(f"castle-refl launched K1 {len(seen['k1'])} times")
+        out["k1_refl1"], out["k1_refl2"] = seen["k1"][2], seen["k1"][3]
+        seen = launches_of(1280, 720, gi_samples=1, denoiser=True,
+                           terrain_n=128)
+        if len(seen["k3"]) != 4:
+            raise SystemExit(f"castle-refl launched K3 {len(seen['k3'])} times")
+        out["k3_refl1"] = seen["k3"][2]
+    else:
+        seen = launches_of(640, 480, gi_samples=0)
+        out["k1"], out["k2"] = seen["k1"][-1], seen["k2"][-1]
+        seen = launches_of(1280, 720, gi_samples=1, denoiser=True)
+        out["k1_bounce"], out["k2_bounce"] = seen["k1"][-1], seen["k2"][-1]
+        seen = launches_of(1280, 720, gi_samples=1, denoiser=True,
+                           terrain_n=128)
+        out["k3"], out["k3_bounce"] = seen["k3"][0], seen["k3"][-1]
+        out["k4"], out["k4_bounce"] = largest(seen["k4"]), seen["k4"][-1]
     torch.save({k: (tuple(a), dict(kw)) for k, (a, kw) in out.items()}, path)
     print(json.dumps({"captured": {k: int(v[0][0].shape[1])
                                    for k, v in out.items()}}), flush=True)
@@ -236,6 +258,8 @@ def main(argv=None):
     sub = ap.add_subparsers(dest="cmd", required=True)
     c = sub.add_parser("capture")
     c.add_argument("launches")
+    c.add_argument("--config", choices=("default", "castle-refl"),
+                   default="default")
     t = sub.add_parser("time")
     t.add_argument("launches")
     t.add_argument("--tag", required=True)
@@ -262,7 +286,7 @@ def main(argv=None):
         capture_output=True, text=True).stdout.strip(), flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     if args.cmd == "capture":
-        _capture(args.launches)
+        _capture(args.launches, args.config)
     elif args.cmd == "time":
         _time(launches, args.tag, outputs, root)
     else:

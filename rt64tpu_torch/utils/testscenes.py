@@ -251,3 +251,62 @@ def build_sample_scene(width=320, height=240, limits=None, di_samples=1,
         denoiser_enabled=denoiser, upscaler=upscaler,
     ))
     return device, scene, view
+
+
+def make_glass_translucent(scene, alpha=0.5):
+    """Let the glass sphere of a with_glass sample scene (its instance 2)
+    pass 1 - alpha of its light. A refractive surface seeds refraction
+    only with the alpha it lets through (PrimaryRayGen.hlsl:156-161), so
+    the opaque glass of the stock scene leaves every refraction ray dead.
+    Works on either package's scene objects."""
+    glass = scene.instances[2].desc.material
+    if glass.refraction_factor <= 0.0:
+        raise ValueError("instance 2 is not the glass sphere")
+    glass.solid_alpha_multiplier = alpha
+
+
+def build_mip_floor(mip_enabled, width=128, height=96, device=None):
+    """A minification scene for ray-differential mip LOD: a floor running
+    to the horizon under a 1-texel checker tiled 64x, so its far rows
+    cover hundreds of texels per pixel. mip_enabled sets
+    SHADER_MIP_LOD_ENABLED on its shader. device: as for
+    build_sample_scene. Returns (device, scene, view); draw to render."""
+    limits = SceneLimits(
+        max_vertices=64, max_triangles=16, max_instances=2,
+        max_textures=4, texel_pool=1 << 16,
+    )
+    device = rt64tpu_torch.Device(limits, device=device)
+    scene = rt64tpu_torch.Scene(device)
+    view = rt64tpu_torch.View(scene, width=width, height=height)
+
+    checker = checker_texture(device, size=64, cell=1)
+    flags = d.SHADER_RAYTRACE_ENABLED
+    if mip_enabled:
+        flags |= d.SHADER_MIP_LOD_ENABLED
+    shader = rt64tpu_torch.Shader(
+        device, SID_TEXTURE, filter=d.SHADER_FILTER_LINEAR,
+        h_addr=d.SHADER_ADDRESSING_WRAP, v_addr=d.SHADER_ADDRESSING_WRAP,
+        flags=flags,
+    )
+    fv = [
+        ((-40, 0, -400), (0, 1, 0), (0, 0)),
+        ((40, 0, -400), (0, 1, 0), (64, 0)),
+        ((40, 0, 0), (0, 1, 0), (64, 64)),
+        ((-40, 0, 0), (0, 1, 0), (0, 64)),
+    ]
+    fidx = np.array([0, 2, 1, 0, 3, 2], np.uint32)
+    mesh = rt64tpu_torch.Mesh(device, d.MESH_RAYTRACE_ENABLED)
+    fdata = interleave(fv, with_uv=True)
+    mesh.set_mesh(fdata, 4, fdata.shape[1] * 4, fidx)
+    inst = rt64tpu_torch.Instance(scene)
+    inst.set_description(d.InstanceDesc(
+        mesh=mesh, transform=np.eye(4, dtype=np.float32),
+        diffuse_texture=checker, shader=shader, material=d.Material(),
+    ))
+    sd = scene.desc
+    sd.ambient_base_color = (1.0, 1.0, 1.0)  # pure texture
+    scene.set_description(sd)
+    # Camera 1.5 up, looking slightly down along -z toward the horizon.
+    vm = math3d.look_at_rh((0.0, 1.5, 4.0), (0.0, 0.6, -20.0), (0.0, 1.0, 0.0))
+    view.set_perspective(vm, 0.9, 0.1, 1000.0)
+    return device, scene, view

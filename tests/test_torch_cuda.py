@@ -324,3 +324,59 @@ def test_tiny_frame_card_matches_cpu(card, gi):
             dev.draw()
         fbs.append(view.framebuffer())
     assert ssim(fbs[0][..., :3], fbs[1][..., :3]) >= 0.99
+
+
+@pytest.mark.parametrize("kernel", ["k1", "k2", "k3", "k4"])
+def test_all_dead_launch_matches_twin(card, monkeypatch, kernel):
+    """A launch whose every ray is dead (t_max = -1, as on a reflection
+    bounce with nothing left to mirror): an empty item table, a
+    persistent grid that finds no work, and the twin's "no hit" bits
+    (closest hit: tri -1, t = t_max + 1, zeros; occlusion: no flag)."""
+    mt = kernel in ("k3", "k4")
+    shadow = kernel in ("k2", "k4")
+    monkeypatch.setattr(tc, "RESIDENT_TABLE_BYTES",
+                        0 if mt else tc.RESIDENT_TABLE_BYTES)
+    origins, dirs, t_min, t_max = _rays(9, shadow, card, n=PARTIAL)
+    t_max.fill_(-1.0)
+    prep = tc.prepare_shadow if shadow else tc.prepare_opaque
+    p = prep(origins, dirs, t_min, t_max, _scene(9, card))
+    assert p.mt == mt and int(p.counts.sum()) == 0
+    items, n_items = tc.work_items_on_card(p.counts, p.visits.shape[1])
+    assert int(n_items) == 0
+    if shadow:
+        wrapper = tc.trace_shadow_mt_blocks if mt else tc.trace_shadow_blocks
+        twin = tc.trace_shadow_mt_plain if mt else tc.trace_shadow_plain
+        got = (wrapper(*p[:5], packed=p.packed),)
+        want = (twin(*p[:5]),)
+    else:
+        wrapper = tc.trace_opaque_mt_blocks if mt else tc.trace_opaque_blocks
+        twin = tc.trace_opaque_mt_plain if mt else tc.trace_opaque_plain
+        got = wrapper(*p[:5], True, packed=p.packed)
+        want = twin(*p[:5], True)
+        assert (got[1] == -1).all()
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_reflection_frame_launches_k1(card):
+    """The castle at 320x240 with GI, the denoiser and two reflection
+    bounces: K1 launches at least four times per frame (primary, GI
+    bounce, one per reflection bounce), and the reflection plane lights
+    exactly the pixels that seed a reflection (chip_smoke.py holds such
+    frames to the CPU)."""
+    from rt64tpu_torch.utils.castle_scene import build_castle_scene
+
+    dev, _, view = build_castle_scene(320, 240, gi_samples=1, denoiser=True)
+    view.max_reflections = 2
+    dev.draw()  # settles the alpha boost ladder
+    before = tc.launch_counts.opaque_launches
+    dev.draw()
+    torch.cuda.synchronize()
+    assert tc.launch_counts.opaque_launches - before >= 4
+    out = view._renderer._last
+    assert int(out.alpha_dropped) == 0
+    seeds = out.gbuffers.refl_alpha > 0
+    lit = out.reflection.abs().amax(dim=0) > 0
+    assert seeds.any() and torch.equal(lit & ~seeds, torch.zeros_like(lit))
+    assert out.reflection.abs().max().item() > 0.05

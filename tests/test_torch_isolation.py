@@ -108,7 +108,16 @@ def _reflections(dev, scene, view):
 
 
 def _refraction(dev, scene, view):
-    scene.instances[0].desc.material.refraction_factor = 1.2
+    # A refractive surface seeds refraction with the alpha it lets
+    # through (PrimaryRayGen.hlsl:156-161), so the sphere turns half
+    # transparent too.
+    material = scene.instances[0].desc.material
+    material.refraction_factor = 1.2
+    material.solid_alpha_multiplier = 0.5
+
+
+def _mip_lod(dev, scene, view):
+    scene.instances[0].desc.shader.mip_lod_enabled = True  # the checker
 
 
 def _upscaler(dev, scene, view):
@@ -140,8 +149,7 @@ def _pipelined(dev, scene, view):
 
 
 @pytest.mark.parametrize("enable", [
-    _reflections, _refraction, _upscaler, _resolution_scale,
-    _motion_blur, _visualization, _raster_hud, _raster_background, _pipelined,
+    _upscaler, _resolution_scale, _motion_blur, _visualization, _raster_hud, _raster_background, _pipelined,
 ], ids=lambda f: f.__name__.strip("_"))
 def test_out_of_slice_features_raise(enable):
     dev, scene, view = _scene()
@@ -163,11 +171,13 @@ def _gi_denoiser(dev, scene, view):
     view.desc.denoiser_enabled = True
 
 
-@pytest.mark.parametrize("enable", [_gi, _denoiser, _gi_denoiser],
-                         ids=lambda f: f.__name__.strip("_"))
+@pytest.mark.parametrize("enable", [
+    _gi, _denoiser, _gi_denoiser, _reflections, _refraction, _mip_lod,
+], ids=lambda f: f.__name__.strip("_"))
 def test_in_slice_features_render(enable):
-    """GI and the GI denoiser render: two frames, the second over the
-    first one's history."""
+    """GI, the GI denoiser, reflections, refraction and mip LOD render:
+    two frames, the second over the first one's history. All but the
+    denoiser alone change the frame."""
     dev, scene, view = _scene()
     dev.draw()
     plain = view.framebuffer().copy()
@@ -179,5 +189,5 @@ def test_in_slice_features_render(enable):
     hist_len = view._renderer._last.indirect_accum[3]
     wants_history = view.desc.gi_samples > 0 and view.desc.denoiser_enabled
     assert bool(hist_len.max() > 1.5) == wants_history
-    if view.desc.gi_samples > 0:
-        assert (fb != plain).any()  # the bounce adds light
+    if enable is not _denoiser:
+        assert (fb != plain).any()  # the feature shows in the frame
