@@ -35,6 +35,18 @@ result line):
      a reflection was seeded and equal it elsewhere), and K1 against its
      twin on both reflection launches of a settled draw (mirror rays,
      unregrouped, mostly dead; the second bounce may have none alive);
+  6d. raster layers: the castle-raster frame (6c's frame with the
+     castle's sky plane removed, a raster-background skybox and a HUD of
+     12 textured quads): against two draws of it without the HUD, every
+     pixel outside the HUD triangles (a float64 edge test of the packed
+     rows) is bit-equal and 90 % of the covered ones change; against two
+     draws without any raster layer, 99 % of the pixels black there
+     (primary misses) are not black with the skybox; 10 frames through
+     Device.draw() (K1/K2 launch counts, frame ms, peak memory), all
+     launches of one profiled frame, device ms and launches of each
+     raster pass and of one environment-map gather; then every debug
+     view of one such frame's outputs on the card against its CPU copy,
+     and one draw of the depth view with the HUD drawn over it;
   7. K3 (closest hit, 128-triangle clusters) against its plain twin on
      the primary launch of a large-castle 1280x720 GI frame, K1 on the
      same rays and scene for comparison, and K3 against its twin on the
@@ -56,6 +68,11 @@ result line):
      rays through K2) and two reflection bounces; the mip-LOD floor
      128x96; and on the card the floor's dealiasing (band std with the
      flag under 0.35 of without, band means within 0.02);
+ 12. the golden frame (the sample scene 160x120 with a HUD triangle, two
+     draws) on the card at SSIM >= 0.98 against
+     tests/golden/sample_160x120.png, read by the port's PNG decoder;
+     and the sample scene 160x120 without its sky plane, with the raster
+     skybox and HUD, gi 1, two draws, card against CPU at SSIM >= 0.99;
 then the kernel table line and the result line.
 
 It imports torch, numpy and rt64tpu_torch only.
@@ -842,6 +859,266 @@ def phase_sample():
     check(s >= 0.99, f"sample SSIM card vs CPU {s} < 0.99")
 
 
+# The castle-raster frame (bench config 4's ray mix at native size, the
+# castle's sky plane removed, testscenes.raster_layers drawn over it: a
+# raster-background skybox and a HUD of 12 textured quads).
+RASTER_FRAMES = 10
+# HUD gate: pixels whose centres lie at least this far (px) inside the
+# HUD triangles count as covered, those at least this far outside as
+# uncovered (the edge test in float64 against the frame's float32).
+HUD_EDGE_PX = 1e-3
+HUD_CHANGED_MIN = 2  # per RGB8 channel
+HUD_CHANGED_SHARE = 0.9
+BG_SHARE = 0.99
+GOLDEN_PNG = "tests/golden/sample_160x120.png"
+# Debug views, card against CPU on one castle-raster frame's outputs: max
+# abs per mode; the flow view's dist < 1 threshold may flip this share
+# of the pixels.
+DEBUG_TOL = 1e-5
+FLOW_FLIP_SHARE = 1e-4
+DEBUG_UNKNOWN_MODE = 23
+
+
+def hud_coverage(rows, irows, w, h):
+    """(covered, maybe) (h, w) masks of the pixel centres inside any of
+    the packed raster rows, from a float64 edge test written here (not
+    the port's): covered lies HUD_EDGE_PX inside a triangle, maybe not
+    HUD_EDGE_PX outside all of them."""
+    import numpy as np
+    from rt64tpu_torch.ops.raster import RR_INST, RR_POS
+    from rt64tpu_torch.pipeline import rows as R
+
+    X, Y = np.meshgrid(np.arange(w) + 0.5, np.arange(h) + 0.5)
+    covered = np.zeros((h, w), bool)
+    maybe = np.zeros((h, w), bool)
+    for row in np.asarray(rows, np.float64):
+        vx, vy, vw, vh = irows[int(row[RR_INST]), R.I_VIEWPORT:R.I_VIEWPORT + 4]
+        vw, vh = (vw if vw > 0 else w), (vh if vh > 0 else h)
+        c = row[RR_POS:RR_POS + 12].reshape(3, 4)
+        sx = vx + (c[:, 0] / c[:, 3] * 0.5 + 0.5) * vw
+        sy = vy + (0.5 - c[:, 1] / c[:, 3] * 0.5) * vh
+        area = (sx[1] - sx[0]) * (sy[2] - sy[0]) - (sy[1] - sy[0]) * (sx[2] - sx[0])
+        sign = 1.0 if area >= 0 else -1.0
+        dists = []
+        for a, b in ((0, 1), (1, 2), (2, 0)):
+            e = (sx[b] - sx[a]) * (Y - sy[a]) - (sy[b] - sy[a]) * (X - sx[a])
+            dists.append(sign * e / max(np.hypot(sx[b] - sx[a], sy[b] - sy[a]), 1e-30))
+        low = np.minimum(np.minimum(dists[0], dists[1]), dists[2])
+        covered |= low >= HUD_EDGE_PX
+        maybe |= low > -HUD_EDGE_PX
+    return covered, maybe
+
+
+def kernel_launches(fn):
+    """CUDA kernels that one fn() launches, by torch.profiler."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(1 for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA)
+
+
+def raster_scene(hud_quads, background):
+    """The castle-raster scene with a chosen part of its raster layers
+    (hud_quads=0 and background=False: the castle-refl frame without
+    its sky plane)."""
+    from rt64tpu_torch.utils.castle_scene import build_castle_scene
+    from rt64tpu_torch.utils.testscenes import raster_layers
+
+    dev, scene, view = build_castle_scene(GI_W, GI_H, di_samples=1,
+                                          gi_samples=1, denoiser=True)
+    view.max_reflections = REFL_BOUNCES
+    view.set_sky_plane(None)
+    if hud_quads or background:
+        raster_layers(scene, dev, hud_quads=hud_quads, background=background)
+    return dev, view
+
+
+def phase_raster():
+    """The castle-raster frame at 1280x720. Two draws of it and of the same
+    scene without the HUD and without any raster layer give the gates:
+    HUD: against the frame without the HUD, every pixel outside the HUD
+    triangles is bit-equal and HUD_CHANGED_SHARE of the covered ones
+    change by more than HUD_CHANGED_MIN; background: BG_SHARE of the
+    pixels that are black without any raster layer (primary misses with
+    no sky plane) are not black with the skybox. Then RASTER_FRAMES
+    frames through Device.draw() with the launch counts set to 0 just
+    before and read just after, all launches of one profiled frame, and
+    the device ms and launches of each raster pass and of one
+    environment-map gather over the frame's 921,600 rays (one GI and two
+    reflection passes run one each). Returns (row, the scene's device,
+    view)."""
+    import numpy as np
+    import torch
+    from rt64tpu_torch.ops import sky
+    from rt64tpu_torch.pipeline import framegraph as fg
+
+    fbs = {}
+    for key, hud, bg in (("none", 0, False), ("bg", 0, True), ("full", 12, True)):
+        dev, view = raster_scene(hud, bg)
+        dev.draw()
+        dev.draw()
+        fbs[key] = view.framebuffer()[..., :3].astype(np.int16)
+        if key != "full":
+            del dev, view
+            torch.cuda.empty_cache()
+    r = view._renderer
+    host = r._sb.raster_host
+    covered, maybe = hud_coverage(host.fg, host.instance_rows, GI_W, GI_H)
+    hud_diff = np.abs(fbs["full"] - fbs["bg"]).max(axis=-1)
+    black = (fbs["none"] == 0).all(axis=-1)
+    bg_changed = (fbs["bg"] != fbs["none"]).any(axis=-1)
+    gates = dict(
+        hud_covered_pixels=int(covered.sum()),
+        hud_changed_share=float((hud_diff[covered] > HUD_CHANGED_MIN).mean()),
+        hud_outside_equal=bool((hud_diff[~maybe] == 0).all()),
+        hud_outside_diff_max=int(hud_diff[~maybe].max()),
+        black_without_layers_share=float(black.mean()),
+        black_lit_by_skybox_share=float((fbs["bg"][black] > 0).any(-1).mean()),
+        other_pixels_changed_share=float(bg_changed[~black].mean()))
+
+    frame_ms, counts, peak = draw_frames(dev, RASTER_FRAMES)
+    row = frame_row("raster", view, RASTER_FRAMES, frame_ms, counts, peak)
+    out, cfg = r._pick_src
+    sb = r._sb
+    ones = torch.ones((1, GI_H, GI_W), device="cuda")
+    base = torch.cat([r._background_planes(cfg), ones], 0)
+    disp = torch.cat([out.image, ones], 0)
+    bg_pass = lambda: fg._raster_layer(base, sb, "bg")
+    fg_pass = lambda: fg._raster_layer(disp, sb, "fg")
+    planes = bg_pass()[:3]
+    dirs = torch.randn((3, GI_W * GI_H),
+                       generator=torch.Generator().manual_seed(0)).to("cuda")
+    env = lambda: sky.sample_background_env(planes, dirs)
+    row.update(
+        width=GI_W, height=GI_H, max_reflections=REFL_BOUNCES, hud_quads=12,
+        raster_bg_triangles=int(host.bg.shape[0]),
+        raster_fg_triangles=int(host.fg.shape[0]),
+        launches_per_frame_all=kernel_launches(dev.draw),
+        bg_pass_ms=time_ms(bg_pass, 10), bg_pass_launches=kernel_launches(bg_pass),
+        fg_pass_ms=time_ms(fg_pass, 10), fg_pass_launches=kernel_launches(fg_pass),
+        env_gather_ms=time_ms(env, 10), env_gather_launches=kernel_launches(env),
+        **gates)
+    emit(row)
+    check_frame(row, view, GI_W, GI_H)
+    check(counts["opaque_launches"] >= (2 + REFL_BOUNCES) * RASTER_FRAMES
+          and counts["shadow_launches"] >= 2 * RASTER_FRAMES,
+          f"K1/K2 launched {counts} in {RASTER_FRAMES} castle-raster frames")
+    check(counts["opaque_mt_launches"] == 0 and counts["shadow_mt_launches"] == 0,
+          "the castle-raster frame (below the size switch) launched K3 or K4")
+    check(sb.features.has_raster_bg and host.fg.shape[0] == 24,
+          "the castle-raster scene packed no raster background or not 24 HUD triangles")
+    check(gates["hud_outside_equal"],
+          f"pixels outside the HUD differ by up to {gates['hud_outside_diff_max']}")
+    check(gates["hud_changed_share"] >= HUD_CHANGED_SHARE,
+          f"the HUD changed {gates['hud_changed_share']} of its pixels")
+    check(gates["black_without_layers_share"] > 0.05,
+          "the frame without raster layers has no black (missed) pixels")
+    check(gates["black_lit_by_skybox_share"] >= BG_SHARE,
+          f"the skybox lit {gates['black_lit_by_skybox_share']} of the missed pixels")
+    return row, dev, view
+
+
+def phase_debug_views(dev, view):
+    """The debug views of one castle-raster FrameOutputs: every mode and
+    one unknown on the card tensors against the same function on their
+    CPU copies (max abs DEBUG_TOL; the flow view may flip
+    FLOW_FLIP_SHARE of its pixels); then one Device.draw() of the depth
+    view, whose HUD must lie over it: outside the HUD the frame equals
+    the plain depth view bit for bit, and the HUD changes its pixels
+    (half the checker cells are white, which a white depth view can
+    match, so a quarter of them is the bound)."""
+    import numpy as np
+    import torch
+    from rt64tpu_torch import descriptors as d
+    from rt64tpu_torch.pipeline import framegraph as fg
+
+    out, cfg = view._renderer._pick_src
+    extra = (out.direct_accum, out.indirect_accum, out.filtered_direct,
+             out.filtered_indirect, out.reflection, out.refraction)
+    cpu = lambda t: t.cpu()
+    g_cpu = fg.GBuffers(*map(cpu, out.gbuffers))
+    extra_cpu = tuple(map(cpu, extra))
+    modes = {}
+    for mode in list(range(d.VISUALIZATION_MODE_COUNT)) + [DEBUG_UNKNOWN_MODE]:
+        card = fg.debug_visualization(mode, cfg, out.gbuffers, *extra).cpu()
+        want = fg.debug_visualization(mode, cfg, g_cpu, *extra_cpu)
+        diff = (card - want).abs()
+        modes[mode] = dict(max_abs=float(diff.max()),
+                           differ_share=float((diff.amax(0) > DEBUG_TOL).float().mean()))
+    del g_cpu, extra_cpu
+
+    view.visualization_mode = d.VISUALIZATION_MODE_DEPTH
+    dev.draw()
+    view.visualization_mode = 0
+    out, cfg = view._renderer._pick_src
+    fb = view.framebuffer()[..., :3].astype(np.int16)
+    plain = fg.present_rgb8(fg.debug_visualization(
+        d.VISUALIZATION_MODE_DEPTH, cfg, out.gbuffers, out.direct_accum,
+        out.indirect_accum, out.filtered_direct, out.filtered_indirect,
+        out.reflection, out.refraction)).cpu().numpy().astype(np.int16)
+    host = view._renderer._sb.raster_host
+    covered, maybe = hud_coverage(host.fg, host.instance_rows, GI_W, GI_H)
+    diff = np.abs(fb - plain).max(axis=-1)
+    row = dict(phase="debug_views", width=GI_W, height=GI_H, modes=modes,
+               depth_view_outside_hud_equal=bool((diff[~maybe] == 0).all()),
+               depth_view_hud_changed_share=float((diff[covered] > HUD_CHANGED_MIN).mean()))
+    emit(row)
+    for mode, m in modes.items():
+        if mode == d.VISUALIZATION_MODE_FLOW:
+            check(m["differ_share"] <= FLOW_FLIP_SHARE,
+                  f"flow view: {m['differ_share']} of the pixels differ card vs CPU")
+        else:
+            check(m["max_abs"] <= DEBUG_TOL,
+                  f"debug view {mode}: max abs {m['max_abs']} card vs CPU")
+    check(row["depth_view_outside_hud_equal"],
+          "the depth view with the HUD differs from the plain depth view outside the HUD")
+    check(row["depth_view_hud_changed_share"] >= 0.25,
+          f"the HUD changed {row['depth_view_hud_changed_share']} of its "
+          "pixels over the depth view")
+    return row
+
+
+def phase_golden():
+    """The port's golden frame on the card: the sample scene at 160x120
+    with a HUD triangle, two draws, at SSIM >= 0.98 against the
+    checked-in PNG (the JAX test's bound), read by the port's decoder."""
+    from rt64tpu_torch.utils.assets import read_image
+    from rt64tpu_torch.utils.ssim import ssim
+    from rt64tpu_torch.utils.testscenes import build_sample_scene, hud_triangle
+
+    dev, scene, view = build_sample_scene(width=160, height=120)
+    hud_triangle(scene, dev, color=(1.0, 0.15, 0.1, 0.85))
+    dev.draw()
+    dev.draw()
+    s = ssim(view.framebuffer()[..., :3], read_image(GOLDEN_PNG)[..., :3])
+    emit(dict(phase="golden", width=160, height=120, png=GOLDEN_PNG, ssim=s))
+    check(s >= 0.98, f"golden frame SSIM {s} < 0.98")
+
+
+def phase_raster_small():
+    """Card against CPU, SSIM >= 0.99: the sample scene at 160x120 with
+    its sky plane removed and the raster skybox and HUD, gi 1, two
+    draws."""
+    from rt64tpu_torch.utils.testscenes import build_sample_scene, raster_layers
+
+    def layered(where):
+        dev, scene, view = build_sample_scene(160, 120, di_samples=1,
+                                              gi_samples=1, device=where)
+        view.set_sky_plane(None)
+        raster_layers(scene, dev)
+        return dev, scene, view
+
+    s, counts, seconds = card_vs_cpu(layered, 2)
+    emit(dict(phase="raster_small_card_vs_cpu", width=160, height=120,
+              frames=2, ssim=s, seconds=seconds, **counts))
+    check(s >= 0.99, f"layered sample SSIM card vs CPU {s} < 0.99")
+
+
 def run():
     try:
         import torch
@@ -910,6 +1187,13 @@ def run():
     del seen, plain_fb
     torch.cuda.empty_cache()
 
+    # 6d. the castle-raster frame (raster skybox and HUD over bench
+    # config 4's ray mix), and the debug views of its outputs
+    raster, dev, view = phase_raster()
+    phase_debug_views(dev, view)
+    del dev, view
+    torch.cuda.empty_cache()
+
     # 7-8. K3 and K4 on a large-castle GI frame's own launches
     dev, view = build_large_castle()
     dev.draw()  # settles the alpha boost ladder, fills the history
@@ -936,6 +1220,10 @@ def run():
     phase_secondary_small()
     phase_mip_lod()
 
+    # 12. the golden frame on the card; raster layers card vs CPU
+    phase_golden()
+    phase_raster_small()
+
     measured = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     # Every kernel also carries its bounce launch's numbers, as
     # bounce_<key>. Every number of this line but bound_ms was measured in
@@ -944,19 +1232,24 @@ def run():
     # K1 and K3 also carry their first reflection launch's, as
     # reflection_<key>, with the launches of the path that ran them: the
     # 10 castle-refl frames (K1), the recorded large-castle-refl draw (K3).
-    kernel = lambda name, src, line, launches, row, refl_launches=None: dict(
+    # K1 and K2 also carry their launches in the 10 castle-raster frames,
+    # as raster_launches.
+    kernel = lambda name, src, line, launches, row, refl_launches=None, **more: dict(
         name=name, route="cuda", source=f"rt64tpu_torch/csrc/{src}",
         replaces=f"rt64tpu/ops/tracer_pallas.py:{line}", launches=launches,
         **{k: row[k] for k in measured}, library_ms=None,
         **{f"bounce_{k}": row["bounce"][k] for k in measured},
         **({} if refl_launches is None else dict(
             reflection_launches=refl_launches,
-            **{f"reflection_{k}": row["reflection"][k] for k in measured})))
+            **{f"reflection_{k}": row["reflection"][k] for k in measured})),
+        **more)
     emit({"kernels": [
         kernel("trace_opaque_walk<WoopClusters> (K1)", "packet_tracer.cu",
-               764, main["opaque_launches"], k1, refl["opaque_launches"]),
+               764, main["opaque_launches"], k1, refl["opaque_launches"],
+               raster_launches=raster["opaque_launches"]),
         kernel("trace_shadow_walk<WoopClusters> (K2)", "packet_tracer.cu",
-               981, main["shadow_launches"], k2),
+               981, main["shadow_launches"], k2,
+               raster_launches=raster["shadow_launches"]),
         kernel("trace_opaque_walk<MtClusters> (K3)", "mt_tracer.cu", 572,
                large["opaque_mt_launches"], k3,
                k3["reflection"]["launches_per_frame"]),

@@ -168,6 +168,11 @@ class Mesh:
         self._parsed_cache[layout_key] = out
         return out
 
+    def parsed_clip(self, layout_key: tuple) -> dict:
+        """Raster-path view: positions kept as clip-space float4
+        (positions4, the passthrough VS contract, rt64_shader.cpp:347-356)."""
+        return self.parsed(layout_key)
+
 
 class Texture:
     """RT64_CreateTexture (rt64_texture.cpp:207-233).

@@ -16,7 +16,8 @@ import numpy as np
 import torch
 
 from rt64tpu_torch.pipeline import framegraph as fg
-from rt64tpu_torch.pipeline.scene_buffers import SceneBuffers, ShadeFeatures
+from rt64tpu_torch.pipeline.scene_buffers import (RasterHost, SceneBuffers,
+                                                  ShadeFeatures)
 
 
 def _tensor(a, device) -> torch.Tensor:
@@ -29,19 +30,27 @@ def _tensor(a, device) -> torch.Tensor:
 def scene_buffers_from_numpy(fields: dict, features, device) -> SceneBuffers:
     """SceneBuffers from a dict of host arrays keyed by field name.
     features: a ShadeFeatures-like object (or dict) with the same flag
-    names; sky_plane may be None."""
+    names; sky_plane may be None. The raster passes' host copies
+    (RasterHost) are taken from the same arrays."""
     if not isinstance(features, dict):
         features = features._asdict()
     sky = fields.get("sky_plane")
     tensors = {
         name: _tensor(fields[name], device)
         for name in SceneBuffers._fields
-        if name not in ("sky_plane", "features")
+        if name not in ("sky_plane", "features", "raster_host")
     }
+    host = lambda name: np.array(np.asarray(fields[name]))
+    rows = lambda layer: host(f"raster_{layer}")[
+        : int(np.asarray(fields[f"raster_{layer}_count"]))]
     return SceneBuffers(
         **tensors,
         sky_plane=None if sky is None else _tensor(sky, device),
         features=ShadeFeatures(**features),
+        raster_host=RasterHost(
+            bg=rows("bg"), fg=rows("fg"),
+            instance_rows=host("instance_rows"),
+            quad_records=host("quad_records")),
     )
 
 

@@ -1,7 +1,8 @@
 """Image-space stages — planar layout: the compose pass (diffuse, direct
-and indirect light, the reflection and refraction planes, transparency)
-and the GI denoise filter. Motion blur, sharpening and the bilinear
-blits arrive with ROADMAP queue 1 item 12."""
+and indirect light, the reflection and refraction planes, transparency),
+the GI denoise filter and the quad-packed bilinear fetch the background
+plane is sampled with. Motion blur, sharpening and the bilinear resize
+arrive with ROADMAP queue 1 item 12."""
 
 from __future__ import annotations
 
@@ -51,3 +52,41 @@ def gaussian_3x3(img):
         return acc
 
     return taps(pad) / torch.clamp(taps(ones), min=1e-12)
+
+
+def quad_pack_planar(img):
+    """(C, H, W) -> (H*W, 4C): per pixel, the channel values of itself
+    and its +x, +y, +xy neighbors (edge-clamped), so a bilinear fetch is
+    one row gather. Kept in f32, and laid out row-major so that a row
+    gather reads contiguous memory."""
+    c, h, w = img.shape
+    xs = torch.cat([img[:, :, 1:], img[:, :, -1:]], dim=2)
+    ys = torch.cat([img[:, 1:, :], img[:, -1:, :]], dim=1)
+    xys = torch.cat([ys[:, :, 1:], ys[:, :, -1:]], dim=2)
+    return torch.cat([img, xs, ys, xys], 0).reshape(4 * c, h * w).T.contiguous()
+
+
+def bilinear_quad(packed, c, h, w, su, sv):
+    """Bilinear fetch from a quad-packed image (quad_pack_planar): one
+    (N, 4C) row gather + vector blend. Returns (C, N). The gather index
+    is clamped by hand (NaN coordinates included): torch raises where
+    JAX clamps."""
+    x = torch.clamp(su * w - 0.5, 0.0, w - 1.0)
+    y = torch.clamp(sv * h - 0.5, 0.0, h - 1.0)
+    x0 = torch.floor(x).to(torch.int32)
+    y0 = torch.floor(y).to(torch.int32)
+    fx = (x - x0)[:, None]
+    fy = (y - y0)[:, None]
+    flat = torch.clamp(y0.to(torch.int64) * w + x0, 0, h * w - 1)
+    g = packed[flat]  # (N, 4C): the gather
+    p00 = g[:, :c]
+    p10 = g[:, c : 2 * c]
+    p01 = g[:, 2 * c : 3 * c]
+    p11 = g[:, 3 * c :]
+    out = (
+        p00 * (1 - fx) * (1 - fy)
+        + p10 * fx * (1 - fy)
+        + p01 * (1 - fx) * fy
+        + p11 * fx * fy
+    )
+    return out.T

@@ -6,12 +6,19 @@ its texture coordinate is affine in screen position, so the frame
 samples it as a separable wrap-bilinear resample of the dense sky
 texture (SceneBuffers.sky_plane). Bounce rays that miss the scene look
 it up by direction through the quad pool (sample_sky_plane).
+
+The raster background plane (SampleBackground2D, BgSky.hlsli:86-96) is
+read on the same grid as a uniform jitter shift of the plane
+(sample_background_grid), and by direction, as an environment map, by
+bounce rays that miss (sample_background_env).
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
+from rt64tpu_torch.ops import filters
 from rt64tpu_torch.ops import texture as tex_ops
 from rt64tpu_torch.ops.colorspace import mod_rgb_with_hsl
 
@@ -139,3 +146,46 @@ def sample_sky_2d_grid(
     # Runtime no-sky gate (rec < 0 -> transparent).
     color = color * (sky_rec >= 0)
     return _finish_sky(color, sky_diffuse_multiplier, sky_hsl_modifier)
+
+
+def sample_background_grid(bg_planes, jx: float, jy: float):
+    """SampleBackground2D on the regular pixel grid: a uniform
+    (jx-0.5, jy-0.5) texel shift of the plane itself, done as an
+    edge-padded window + 4-tap scalar-weight blend (no gather). The
+    jitter is known on the host, so the window's offset is too. Matches
+    bilinear_quad's clip/floor math: both taps collapse onto the edge
+    texel outside the image. bg_planes: (3, H, W); returns (3, H*W)."""
+    c, h, w = bg_planes.shape
+    f = np.float32
+    dx = f(jx) - f(0.5)
+    dy = f(jy) - f(0.5)
+    x0 = min(max(np.floor(dx), f(-1.0)), f(0.0))
+    y0 = min(max(np.floor(dy), f(-1.0)), f(0.0))
+    fx = float(dx - x0)
+    fy = float(dy - y0)
+    pad = torch.nn.functional.pad(bg_planes[None], (1, 1, 1, 1),
+                                  mode="replicate")[0]
+    oy, ox = 1 + int(y0), 1 + int(x0)
+    win = pad[:, oy : oy + h + 1, ox : ox + w + 1]
+    out = (
+        win[:, :h, :w] * float(f(1 - fx) * f(1 - fy))
+        + win[:, :h, 1:] * float(f(fx) * f(1 - fy))
+        + win[:, 1:, :w] * float(f(1 - fx) * f(fy))
+        + win[:, 1:, 1:] * float(f(fx) * f(fy))
+    )
+    return out.reshape(c, h * w)
+
+
+def sample_background_2d(bg_planes, su, sv):
+    """SampleBackground2D: bilinear sample of the raster background.
+    bg_planes: (3, H, W) planar image; su/sv: (N,). Returns (3, N)."""
+    packed = filters.quad_pack_planar(bg_planes)
+    return filters.bilinear_quad(
+        packed, 3, bg_planes.shape[1], bg_planes.shape[2], su, sv
+    )
+
+
+def sample_background_env(bg_planes, ray_dir):
+    """SampleBackgroundAsEnvMap (BgSky.hlsli:94-96)."""
+    u, v = fake_env_map_uv(ray_dir, 0.0)
+    return sample_background_2d(bg_planes, u, v)

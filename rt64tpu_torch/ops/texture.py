@@ -108,7 +108,7 @@ def _gather_quads(pool, flat):
         row = flat // QPR
         lane = flat % QPR
         return torch.stack([pool[row, c * QPR + lane] for c in range(4)], 0)
-    return pool[flat].T
+    return pool[flat].movedim(-1, 0)
 
 
 def _unpack(words):
@@ -163,3 +163,11 @@ def sample_quad_cols(pool, offset, w, h, valid, u, v, filter_linear,
     point = torch.where(py, torch.where(px, c11, c01), torch.where(px, c10, c00))
     out = torch.where(filter_linear[None], bilinear, point)
     return torch.where(torch.broadcast_to(valid, n)[None], out, 0.0)
+
+
+def scalar_record(records: np.ndarray, rec_id: int):
+    """(offset, w, h) of one record id, read from the host copy of the
+    record table. Negative ids clamp to row 0; callers keep masking by
+    rec_id >= 0."""
+    row = records[max(int(rec_id), 0)]
+    return int(row[0]), int(row[1]), int(row[2])

@@ -8,15 +8,18 @@ functions over device-resident planes:
        on opted-in diffuse textures) -> batched shadow launch
     -> direct -> indirect (1-bounce GI, reprojected history)
     -> refraction -> reflection bounces (max_reflections)
-    -> GI denoise filter -> compose
+    -> GI denoise filter -> compose -> debug view -> raster foreground
+
+with the raster background composited over the host's base plane first
+(ops/raster.py): primary misses read it on the pixel grid, bounce and
+mirror misses as an environment map.
 
 All per-pixel data is planar ((C, N) / (C, H, W)) in the tile-swizzled
 pixel order, so each 512-ray block is an 8x64 screen tile. Raygen math
 mirrors the HLSL raygen shaders (citations inline).
 
-The upscalers, motion blur, the raster layers and the debug views raise
-NotImplementedError naming the ROADMAP item that brings them
-(check_slice).
+The upscalers and motion blur raise NotImplementedError naming the
+ROADMAP item that brings them (check_slice).
 """
 
 from __future__ import annotations
@@ -27,8 +30,8 @@ from typing import NamedTuple
 import torch
 
 from rt64tpu_torch import descriptors as d
-from rt64tpu_torch.ops import (bluenoise, filters, fog, lighting, raydiff,
-                                sky, tracer)
+from rt64tpu_torch.ops import (bluenoise, filters, fog, lighting, raster,
+                                raydiff, sky, tracer)
 from rt64tpu_torch.ops import random as rnd
 from rt64tpu_torch.ops import shading as shade_ops
 from rt64tpu_torch.ops import tracer_cuda
@@ -165,8 +168,7 @@ class FrameOutputs(NamedTuple):
     alpha_dropped: torch.Tensor  # () (see GBuffers.alpha_dropped)
 
 
-def check_slice(sb: SceneBuffers, cfg: RenderConfig,
-                visualization_mode: int = 0) -> None:
+def check_slice(cfg: RenderConfig) -> None:
     """Raise for every feature the port does not render yet, naming the
     ROADMAP queue-1 item that brings it. Nothing is skipped silently."""
     todo = [
@@ -176,9 +178,6 @@ def check_slice(sb: SceneBuffers, cfg: RenderConfig,
          "upscaling and resolution scaling", 12),
         (cfg.sharpen_enabled, "RCAS sharpening", 12),
         (cfg.motion_blur_enabled, "motion blur", 12),
-        (visualization_mode != 0, "debug visualization modes", 11),
-        (sb.features.has_raster_bg or sb.raster_fg.shape[0] > 0,
-         "raster background/foreground layers", 11),
     ]
     for missing, what, item in todo:
         if missing:
@@ -796,11 +795,13 @@ def _simple_resolve_fold(
             dropped)
 
 
-def _background_env(ray_dir):
-    """SampleBackgroundAsEnvMap for bounce-miss rays. Without raster
-    background instances the background plane is black, so this is
-    zeros; with them check_slice has already raised (ROADMAP queue 1
-    item 11)."""
+def _background_env(sb, bg_planes, ray_dir):
+    """SampleBackgroundAsEnvMap for bounce-miss rays, skipped when the
+    scene has no raster background: bg_planes is then the black base
+    and the per-ray gather would return zeros (the JAX package measured
+    171 ms per frame of it at 4K)."""
+    if sb.features.has_raster_bg:
+        return sky.sample_background_env(bg_planes, ray_dir)
     return torch.zeros((3, ray_dir.shape[1]), device=ray_dir.device)
 
 
@@ -824,7 +825,7 @@ def _cos_hemisphere(r1, r2, normal):
 
 def indirect_pass(
     sb, tri_rows, trace_scene, cfg, gp, g: GBuffers, hist: History,
-    pix, bn_table, noise_rand,
+    pix, bn_table, noise_rand, bg_planes,
 ):
     """IndirectRayGen.hlsl:31-137: 1-bounce blue-noise diffuse GI.
     Bounce rays are regrouped by direction and their shadow rays by
@@ -866,7 +867,7 @@ def indirect_pass(
             cfg.k_secondary, noise_rand, cfg, regroup="dir",
         )
 
-        bg = _background_env(ray_dir)
+        bg = _background_env(sb, bg_planes, ray_dir)
         sky_c = sky.sample_sky_plane(
             sb.quad_pool, sb.quad_records, gp.sky_plane_rec, ray_dir,
             gp.sky_yaw_offset, gp.sky_diffuse_mult, gp.sky_hsl_mod,
@@ -995,9 +996,9 @@ def refraction_pass(
 
     bg_color is the (3, N) screen-space background+sky fallback the
     refracted miss reads (RefractionRayGen.hlsl:30-36), the same sample
-    render_frame computed for the primary pass. Pixels that seeded no
-    refraction ride as dead rays (empty trace intervals). Neither trace
-    is regrouped, as in the JAX package."""
+    render_frame computed for the primary pass. Pixels
+    that seeded no refraction ride as dead rays (empty trace intervals).
+    Neither trace is regrouped, as in the JAX package."""
     n = g.instance.shape[0]
     active = (g.instance >= 0) & (g.refr_alpha > EPSILON)
     ray_dir = _refract(g.view_dir, g.normal, g.row[R.CTX_REFRACTION])
@@ -1042,7 +1043,7 @@ class ReflectionState(NamedTuple):
 
 def reflection_pass(
     sb, tri_rows, trace_scene, cfg, gp, state: ReflectionState, pix,
-    bn_table, noise_rand,
+    bn_table, noise_rand, bg_planes,
 ):
     """One ReflectionRayGen iteration (ReflectionRayGen.hlsl:25-143),
     looped max_reflections times (rt64_view.cpp:1417-1436). Returns
@@ -1055,7 +1056,7 @@ def reflection_pass(
     active = (inst_id >= 0) & (refl_a > EPSILON)
     ray_dir = vm.reflect(view_dir, sh_nrm)
 
-    bg = _background_env(ray_dir)
+    bg = _background_env(sb, bg_planes, ray_dir)
     sky_c = sky.sample_sky_plane(
         sb.quad_pool, sb.quad_records, gp.sky_plane_rec, ray_dir,
         gp.sky_yaw_offset, gp.sky_diffuse_mult, gp.sky_hsl_mod,
@@ -1178,6 +1179,23 @@ def reflection_pass(
             refl_dropped + li_drop)
 
 
+def _raster_layer(image, sb: SceneBuffers, layer: str):
+    """Blend one raster layer ("bg" or "fg") of the scene over image
+    (4, H, W); the triangles and their draw state come from the
+    packer's host copies (SceneBuffers.raster_host)."""
+    rows = getattr(sb, f"raster_{layer}")
+    host = sb.raster_host
+    if host is None:
+        if rows.shape[0]:
+            raise ValueError("the scene has raster rows but no host copy "
+                             "of them (SceneBuffers.raster_host)")
+        return image
+    rows_host = getattr(host, layer)
+    return raster.rasterize(image, rows, rows_host.shape[0], rows_host,
+                            host.instance_rows, sb.quad_pool,
+                            host.quad_records)
+
+
 def render_frame(
     sb: SceneBuffers,
     gp: GlobalParams,
@@ -1185,9 +1203,19 @@ def render_frame(
     bn_table,
     cfg: RenderConfig,
     visualization_mode: int = 0,
+    bg_planes=None,
+    jitter=(0.0, 0.0),
 ) -> FrameOutputs:
-    """The full frame: View::render as one function."""
-    check_slice(sb, cfg, visualization_mode)
+    """The full frame: View::render as one function.
+
+    bg_planes: (3, H, W) base plane the raster background composites
+    onto (the view passes a black one, as the reference's host clears
+    to black before the background instances draw,
+    rt64_view.cpp:1292-1319). Read only when the scene has
+    raster-background triangles. jitter: gp.pixel_jitter on the host
+    (the view builds both from one value); the fixed-grid background
+    and sky samples read it."""
+    check_slice(cfg)
     h, w = cfg.rt_height, cfg.rt_width
     n = h * w
     dev = gp.view.device
@@ -1207,18 +1235,28 @@ def render_frame(
         )
     bn = bluenoise.grid_sampler(bn_table, w, h, swizzle=swz)
 
-    # Background + sky (PrimaryRayGen.hlsl:47-56); the raster
-    # background is black without raster-background instances.
-    bg_color = torch.zeros((3, n), device=dev)
+    # Raster background pass (rt64_view.cpp:1292-1319): composited over
+    # the base plane; rays sample the result. Without raster-background
+    # triangles none of the background work runs (the plane is black).
+    if sb.features.has_raster_bg:
+        bg_rgba = torch.cat([bg_planes, torch.ones((1, h, w), device=dev)], 0)
+        bg_planes = _raster_layer(bg_rgba, sb, "bg")[:3]
+        bg_color = sky.sample_background_grid(bg_planes, *jitter)
+    else:
+        bg_color = torch.zeros((3, n), device=dev)
+    # Fixed-grid background + sky (PrimaryRayGen.hlsl:47-56).
     if sb.sky_plane is not None:
         sky_c = sky.sample_sky_2d_grid(
-            sb.sky_plane, gp.sky_plane_rec, gp.pixel_jitter, gp.view_i,
+            sb.sky_plane, gp.sky_plane_rec, jitter, gp.view_i,
             torch.tensor([cfg.display_width, cfg.display_height],
                          dtype=torch.float32, device=dev),
             gp.sky_yaw_offset, gp.sky_diffuse_mult, gp.sky_hsl_mod,
             w, h, h,
         )
         bg_color = bg_color * (1.0 - sky_c[3])[None] + sky_c[:3] * sky_c[3][None]
+    # Both grid samples come in row-major pixel order; the rays read them
+    # in the frame's (the 8x64 tile order of a tiled frame).
+    bg_color = from_image(cfg, bg_color.reshape(3, h, w))
 
     t_min = torch.full((n,), tracer.RAY_MIN_DISTANCE, device=dev)
     t_max = torch.full((n,), tracer.RAY_MAX_DISTANCE, device=dev)
@@ -1257,6 +1295,7 @@ def render_frame(
     )
     indirect_accum, i_drop = indirect_pass(
         sb, tri_rows, trace_scene, cfg, gp, g, history, pix, bn, noise_rand,
+        bg_planes,
     )
     alpha_dropped = alpha_dropped + i_drop
     if cfg.refraction_enabled:
@@ -1276,6 +1315,7 @@ def render_frame(
     for _ in range(cfg.max_reflections):
         refl, rf_drop = reflection_pass(
             sb, tri_rows, trace_scene, cfg, gp, refl, pix, bn, noise_rand,
+            bg_planes,
         )
         alpha_dropped = alpha_dropped + rf_drop
 
@@ -1293,8 +1333,24 @@ def render_frame(
         refl.rgb, refraction_rgb, g.transparent,
     ))
 
+    # The display image is the frame at native size (check_slice refuses
+    # scaling and motion blur until item 12), or the debug view.
+    disp = rt_rgb
+    if visualization_mode != 0:
+        disp = debug_visualization(
+            visualization_mode, cfg, g, direct_accum, indirect_accum,
+            filtered_direct, filtered_indirect, refl.rgb, refraction_rgb,
+        )
+
+    # Raster foreground (HUD) over the display image
+    # (rt64_view.cpp:1657-1661), row-major at display size.
+    if sb.raster_fg.shape[0]:
+        dh, dw = disp.shape[1], disp.shape[2]
+        disp_rgba = torch.cat([disp, torch.ones((1, dh, dw), device=dev)], 0)
+        disp = _raster_layer(disp_rgba, sb, "fg")[:3]
+
     return FrameOutputs(
-        image=rt_rgb,
+        image=disp,
         history=History(normal=g.normal, depth=g.depth,
                         direct=direct_accum, indirect=indirect_accum),
         gbuffers=g,
@@ -1307,6 +1363,85 @@ def render_frame(
         rt_output=rt_rgb,
         alpha_dropped=alpha_dropped,
     )
+
+
+def debug_visualization(
+    mode: int, cfg, g: GBuffers, direct_accum, indirect_accum,
+    filtered_direct, filtered_indirect, reflection, refraction,
+):
+    """DebugPS.hlsl visualization modes (17 in all; an unknown mode
+    shows 0.5 grey). Returns (3, H, W) at the frame's size."""
+    h, w = cfg.rt_height, cfg.rt_width
+
+    def img3(x):
+        return to_image(cfg, x)
+
+    def img1(x):
+        return to_image(cfg, x[None]).expand(3, h, w)
+
+    planes = {
+        d.VISUALIZATION_MODE_SHADING_POSITION: lambda: img3(g.position),
+        d.VISUALIZATION_MODE_SHADING_NORMAL: lambda: img3((g.normal + 1.0) / 2.0),
+        d.VISUALIZATION_MODE_SHADING_SPECULAR: lambda: img3(g.specular),
+        d.VISUALIZATION_MODE_DIFFUSE: lambda: img3(g.diffuse_rgb),
+        d.VISUALIZATION_MODE_INSTANCE_ID: lambda: img3(_instance_colors(g.instance)),
+        d.VISUALIZATION_MODE_DIRECT_LIGHT_RAW: lambda: img3(direct_accum[:3]),
+        d.VISUALIZATION_MODE_DIRECT_LIGHT_FILTERED: lambda: img3(filtered_direct),
+        d.VISUALIZATION_MODE_INDIRECT_LIGHT_RAW: lambda: img3(indirect_accum[:3]),
+        d.VISUALIZATION_MODE_INDIRECT_LIGHT_FILTERED: lambda: img3(filtered_indirect),
+        d.VISUALIZATION_MODE_REFLECTION: lambda: img3(reflection),
+        d.VISUALIZATION_MODE_REFRACTION: lambda: img3(refraction),
+        d.VISUALIZATION_MODE_TRANSPARENT: lambda: img3(g.transparent),
+        d.VISUALIZATION_MODE_FLOW: lambda: _flow_visualization(cfg, to_image(cfg, g.flow)),
+        d.VISUALIZATION_MODE_REACTIVE_MASK: lambda: img1(g.reactive),
+        d.VISUALIZATION_MODE_LOCK_MASK: lambda: img1(g.lock),
+        d.VISUALIZATION_MODE_DEPTH: lambda: img1(g.depth),
+    }
+    make = planes.get(mode)
+    if make is None:
+        return torch.full((3, h, w), 0.5, device=g.depth.device)
+    return make()
+
+
+def _instance_colors(instance):
+    """Per-instance random colours (DebugPS.hlsl): initRand(instance, 0)
+    and three nextRand draws; black where nothing was hit."""
+    seed = rnd.init_rand(torch.clamp(instance, min=0).to(torch.int64),
+                         torch.zeros_like(instance, dtype=torch.int64))
+    seed, r = rnd.next_rand(seed)
+    seed, gg = rnd.next_rand(seed)
+    seed, b = rnd.next_rand(seed)
+    return torch.stack([r, gg, b], 0) * (instance >= 0)[None]
+
+
+def _flow_visualization(cfg, flow):
+    """Motion-vector line drawing (DebugPS.hlsl:15-46): a line from each
+    32-pixel block's centre along its flow. flow: (2, H, W)."""
+    h, w = cfg.rt_height, cfg.rt_width
+    dev = flow.device
+    block = 32.0
+    yy = torch.arange(h, dtype=torch.float32, device=dev)[:, None]
+    xx = torch.arange(w, dtype=torch.float32, device=dev)[None, :]
+    cx = torch.floor(xx / block) * block + block * 0.5
+    cy = torch.floor(yy / block) * block + block * 0.5
+    cxi = torch.clamp(cx.to(torch.int64), 0, w - 1)
+    cyi = torch.clamp(cy.to(torch.int64), 0, h - 1)
+    flat = (cyi * w + cxi).reshape(-1)
+    fx = flow[0].reshape(-1)[flat].reshape(h, w)
+    fy = flow[1].reshape(-1)[flat].reshape(h, w)
+    px = cx + fx
+    py = cy + fy
+    dx = px - cx
+    dy = py - cy
+    l2 = dx * dx + dy * dy
+    t = torch.clamp(((xx - cx) * dx + (yy - cy) * dy)
+                    / torch.clamp(l2, min=1e-12), 0.0, 1.0)
+    qx = cx + t * dx
+    qy = cy + t * dy
+    dist = torch.sqrt((xx - qx) ** 2 + (yy - qy) ** 2)
+    dist = torch.where(l2 > 0.0, dist, torch.sqrt((xx - cx) ** 2 + (yy - cy) ** 2))
+    on = (dist < 1.0).to(torch.float32)
+    return on[None].expand(3, h, w)
 
 
 def present_rgb8(image: torch.Tensor) -> torch.Tensor:

@@ -32,12 +32,9 @@ from rt64tpu_torch.limits import SceneLimits, _next_bucket
 from rt64tpu_torch.ops import texture as tex_ops
 from rt64tpu_torch.ops.combiner import SHADER_0, SHADER_TEXEL0A
 from rt64tpu_torch.ops.mipmaps import generate_mips
+from rt64tpu_torch.ops.raster import (RR_IN1, RR_IN2, RR_INST, RR_POS, RR_UV,
+                                      RR_WIDTH)
 from rt64tpu_torch.pipeline import rows as R
-
-# Raster-layer row width (rt64tpu/ops/raster.py RR_WIDTH): the packed
-# scene keeps its empty (0, RR_WIDTH) raster tables until the raster
-# pass is ported (ROADMAP queue 1 item 11).
-RR_WIDTH = 44
 
 
 class ShadeFeatures(NamedTuple):
@@ -60,8 +57,23 @@ class ShadeFeatures(NamedTuple):
     has_raster_bg: bool = True
 
 
+class RasterHost(NamedTuple):
+    """The packer's host copies of what the raster passes read per
+    triangle (ops/raster.py): the valid rows of each raster layer, the
+    instance rows and the quad-pool records. With them the frame knows
+    the counts and every triangle's draw state without reading the
+    device."""
+
+    bg: np.ndarray  # (raster_bg_count, RR_WIDTH)
+    fg: np.ndarray  # (raster_fg_count, RR_WIDTH)
+    instance_rows: np.ndarray  # (I, IROW)
+    quad_records: np.ndarray  # (Rec, 3)
+
+
 class SceneBuffers(NamedTuple):
-    """Device-resident scene. All shapes fixed by SceneLimits."""
+    """Device-resident scene. All shapes fixed by SceneLimits. The
+    fields up to `features` match the JAX package's; raster_host holds
+    host copies of the raster tables (RasterHost)."""
 
     vertex_rows: torch.Tensor  # (V, VROW) f32 object-space attrs
     tri_idx: torch.Tensor  # (T, 3) int32
@@ -80,6 +92,7 @@ class SceneBuffers(NamedTuple):
     # view has no sky), for the fixed-grid sky resample.
     sky_plane: Optional[torch.Tensor] = None
     features: ShadeFeatures = ShadeFeatures()
+    raster_host: Optional[RasterHost] = None
 
 
 def _addr_np(i, size, mode):
@@ -336,11 +349,6 @@ class ScenePacker:
         """instances: raytraced + raster, in one list (instance rows are
         shared); raster_bg/raster_fg: the raster classification
         (rt64_view.cpp:1081-1147)."""
-        if raster_bg or raster_fg:
-            raise NotImplementedError(
-                "raster background/foreground instances arrive with "
-                "ROADMAP queue 1 item 11 (ops/raster.py)"
-            )
         lm = self.limits
         I = lm.max_instances
         larr, lgroups = lights_arrays
@@ -499,6 +507,9 @@ class ScenePacker:
         count = min(len(larr), L)
         lights[:count] = larr[:count, :LIGHT_WIDTH]
 
+        rb_rows, rb_count = self._pack_raster(instances, raster_bg or [])
+        rf_rows, rf_count = self._pack_raster(instances, raster_fg or [])
+
         if self._dev_quads is None:
             pool_np = self._np["quad_pool"]
             if pool_np.shape[0] % tex_ops.QPR == 0:
@@ -507,9 +518,16 @@ class ScenePacker:
                 quad_pool=self._up(pool_np.astype(np.int64)),
                 quad_records=self._up(self._np["quad_records"]),
             )
-        # Scene-wide feature summary (ShadeFeatures docstring).
+        # Scene-wide feature summary (ShadeFeatures docstring), over the
+        # raytraced instances: a raster instance never yields a ray hit.
+        # (The JAX package also counts the raster ones, scene_buffers.py
+        # :535-571, so a HUD with an alpha combiner turns on the
+        # transparent-light pass of every frame.)
+        raster_ids = {id(inst) for inst in (raster_bg or []) + (raster_fg or [])}
         has_nmap = has_smap = has_t1 = has_mips = has_lit_tl = False
         for inst in instances[:I]:
+            if id(inst) in raster_ids:
+                continue
             sh = inst.desc.shader
             if sh is None:
                 continue
@@ -534,21 +552,61 @@ class ScenePacker:
             has_texel1=has_t1,
             has_lit_transparent=has_lit_tl,
             has_mips=has_mips,
-            has_raster_bg=False,
+            has_raster_bg=rb_count > 0,
         )
         dev = self.device
         i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
-        no_raster = torch.zeros((0, RR_WIDTH), device=dev)
         return SceneBuffers(
             **self._dev_geom,
             instance_rows=self._up(irows),
             lights=self._up(lights),
             light_count=i32(count),
             **self._dev_quads,
-            raster_bg=no_raster,
-            raster_bg_count=i32(0),
-            raster_fg=no_raster,
-            raster_fg_count=i32(0),
+            raster_bg=self._up(rb_rows),
+            raster_bg_count=i32(rb_count),
+            raster_fg=self._up(rf_rows),
+            raster_fg_count=i32(rf_count),
             sky_plane=self._sky_dense,
             features=features,
+            raster_host=RasterHost(
+                bg=rb_rows[:rb_count], fg=rf_rows[:rf_count],
+                instance_rows=irows, quad_records=records),
         )
+
+    def _pack_raster(self, instances: List[Instance], raster_list):
+        """Pack raster triangles (clip-space) into RR rows, in each
+        mesh's index order; RR_INST indexes the combined instance list.
+        More triangles than limits.raster_triangles raise: none is
+        dropped."""
+        cap = self.limits.raster_triangles
+        if not raster_list:
+            # Zero rows: the raster pass does not run at all.
+            return np.zeros((0, RR_WIDTH), np.float32), 0
+        drawn = [
+            inst for inst in raster_list
+            if inst.desc.mesh is not None and inst.desc.shader is not None
+            and inst.desc.mesh.indices is not None
+        ]
+        total = sum(inst.desc.mesh.indices.shape[0] for inst in drawn)
+        if total > cap:
+            raise ValueError(
+                f"{total} raster triangles in one layer exceed "
+                f"SceneLimits.raster_triangles = {cap}; raise that limit"
+            )
+        rows = np.zeros((cap, RR_WIDTH), np.float32)
+        count = 0
+        for inst in drawn:
+            ii = instances.index(inst)
+            parsed = inst.desc.mesh.parsed_clip(inst.desc.shader.layout_key)
+            tris = parsed["indices"]
+            n = tris.shape[0]
+            dst = rows[count : count + n]
+            for k in range(3):
+                vi = tris[:, k]
+                dst[:, RR_POS + 4 * k : RR_POS + 4 * k + 4] = parsed["positions4"][vi]
+                dst[:, RR_UV + 2 * k : RR_UV + 2 * k + 2] = parsed["uvs"][vi]
+                dst[:, RR_IN1 + 4 * k : RR_IN1 + 4 * k + 4] = parsed["inputs"][vi, 0]
+                dst[:, RR_IN2 + 4 * k : RR_IN2 + 4 * k + 4] = parsed["inputs"][vi, 1]
+            dst[:, RR_INST] = ii
+            count += n
+        return rows, count

@@ -48,6 +48,10 @@ class ViewRenderer:
         self._alpha_boost = 1
         self._pick_src = None  # (FrameOutputs, cfg) of the presented frame
         self._pick_plane = None  # cached on-demand picking readback
+        self._bg_cache = {}  # (h, w) -> the black base plane on the device
+        # The pixel jitter on the host (zero: it only runs while an
+        # upscaler does, rt64_view.cpp:1273-1281, ROADMAP item 12).
+        self._jitter = (0.0, 0.0)
 
     # -- update: the View::update analog -----------------------------------
     def update(self):
@@ -119,9 +123,22 @@ class ViewRenderer:
 
     def _frame(self, cfg, gp):
         out = fg.render_frame(self._sb, gp, self.history, self.bn_table, cfg,
-                              visualization_mode=self.view.visualization_mode)
+                              visualization_mode=self.view.visualization_mode,
+                              bg_planes=self._background_planes(cfg),
+                              jitter=self._jitter)
         self.history = out.history
         return out
+
+    def _background_planes(self, cfg):
+        """Base plane the in-frame raster-background pass composites onto
+        (rt64_view.cpp:1292-1319): black, planar (3, H, W), kept on the
+        device per resolution (the frame never writes it)."""
+        key = (cfg.rt_height, cfg.rt_width)
+        bg = self._bg_cache.get(key)
+        if bg is None:
+            bg = torch.zeros((3,) + key, device=self.device)
+            self._bg_cache[key] = bg
+        return bg
 
     def instance_plane(self):
         """(rt_h, rt_w) int32 instance-id plane of the presented frame,
@@ -199,8 +216,6 @@ class ViewRenderer:
         )
         vd = view.desc
         f32 = np.float32
-        # No jitter: it only runs while an upscaler does
-        # (rt64_view.cpp:1273-1281).
         return global_params_from_numpy(dict(
             view=vmat,
             view_i=view_i.astype(f32),
@@ -212,7 +227,7 @@ class ViewRenderer:
             camera_u=np.asarray(cam_u, f32),
             camera_v=np.asarray(cam_v, f32),
             camera_w=np.asarray(cam_w, f32),
-            pixel_jitter=np.zeros(2, f32),
+            pixel_jitter=np.asarray(self._jitter, f32),
             ambient_base=np.asarray(desc.ambient_base_color, f32),
             ambient_no_gi=np.asarray(desc.ambient_no_gi_color, f32),
             eye_light_diffuse=np.asarray(desc.eye_light_diffuse_color, f32),

@@ -4,13 +4,18 @@ through Device.draw() with torch.profiler and print one JSON line.
     python3 -m rt64tpu_torch.utils.frame_profile [--width 640 --height 480 --frames 5]
     python3 -m rt64tpu_torch.utils.frame_profile --config large-gi
     python3 -m rt64tpu_torch.utils.frame_profile --config castle-refl
+    python3 -m rt64tpu_torch.utils.frame_profile --config castle-raster
 
 --config castle (the default) is the castle frame without GI; large-gi
 is the large castle (terrain_n 128, beyond the packet tracer's size
 switch) at 1280x720 with gi_samples 1 and the denoiser; castle-gi is the
 castle at 1280x720 with gi_samples 1 and the denoiser; castle-refl is
-castle-gi with two reflection bounces (bench config 4 at native size).
-All but castle-refl draw with max_reflections 0.
+castle-gi with two reflection bounces (bench config 4 at native size);
+castle-raster is castle-refl with the castle's sky plane removed and
+testscenes.raster_layers drawn over it: a raster-background skybox and a
+HUD of 12 textured quads (the frame of a game that draws its own skybox
+and HUD). castle-refl and castle-raster draw with max_reflections 2, the
+others with 0.
 
 Reports the median wall time per frame without the profiler and under
 it, the summed device-kernel time per frame (and so the device's idle
@@ -28,21 +33,37 @@ import subprocess
 import time
 
 
-# name -> ((width, height), build_castle_scene keywords, max_reflections)
+# name -> ((width, height), build_castle_scene keywords, max_reflections,
+# raster layers)
 CONFIGS = {
-    "castle": ((640, 480), dict(gi_samples=0), 0),
+    "castle": ((640, 480), dict(gi_samples=0), 0, False),
     "large-gi": ((1280, 720),
-                 dict(gi_samples=1, denoiser=True, terrain_n=128), 0),
-    "castle-gi": ((1280, 720), dict(gi_samples=1, denoiser=True), 0),
-    "castle-refl": ((1280, 720), dict(gi_samples=1, denoiser=True), 2),
+                 dict(gi_samples=1, denoiser=True, terrain_n=128), 0, False),
+    "castle-gi": ((1280, 720), dict(gi_samples=1, denoiser=True), 0, False),
+    "castle-refl": ((1280, 720), dict(gi_samples=1, denoiser=True), 2, False),
+    "castle-raster": ((1280, 720), dict(gi_samples=1, denoiser=True), 2, True),
 }
+
+
+def build_config(name, width=None, height=None, device=None):
+    """(dev, scene, view) of one configuration of CONFIGS."""
+    from rt64tpu_torch.utils.castle_scene import build_castle_scene
+    from rt64tpu_torch.utils.testscenes import raster_layers
+
+    (w, h), scene_kw, reflections, layers = CONFIGS[name]
+    dev, scene, view = build_castle_scene(width or w, height or h,
+                                          di_samples=1, device=device,
+                                          **scene_kw)
+    view.max_reflections = reflections
+    if layers:
+        view.set_sky_plane(None)
+        raster_layers(scene, dev)
+    return dev, scene, view
 
 
 def main(argv=None):
     import torch
     from torch.profiler import ProfilerActivity, profile
-
-    from rt64tpu_torch.utils.castle_scene import build_castle_scene
 
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--config", choices=sorted(CONFIGS), default="castle")
@@ -54,12 +75,10 @@ def main(argv=None):
     if not torch.cuda.is_available():
         raise SystemExit("frame_profile needs a CUDA card")
 
-    (width, height), scene_kw, reflections = CONFIGS[args.config]
+    (width, height), _, reflections, _ = CONFIGS[args.config]
     args.width = args.width or width
     args.height = args.height or height
-    dev, _, view = build_castle_scene(args.width, args.height, di_samples=1,
-                                      **scene_kw)
-    view.max_reflections = reflections
+    dev, _, view = build_config(args.config, args.width, args.height)
     for _ in range(2):  # warm up: kernel build, boost ladder, allocator
         dev.draw()
     torch.cuda.synchronize()

@@ -137,6 +137,71 @@ def hud_triangle(scene, device, color=(1.0, 0.2, 0.2, 0.8), background=False):
     return inst
 
 
+def raster_layers(scene, device, hud_quads=12, background=True):
+    """A game's raster layers over a scene: with background, a
+    full-screen two-triangle skybox textured with sky_texture (an
+    INSTANCE_RASTER_BACKGROUND instance), and a HUD of hud_quads
+    textured quads (2 triangles each; checker_texture at alpha 0.85) in
+    one foreground instance, laid along the screen edges. Returns the
+    instances (background first)."""
+    out = []
+    if background:
+        sh = rt64tpu_torch.Shader(
+            device, SID_TEXTURE, filter=d.SHADER_FILTER_LINEAR,
+            h_addr=d.SHADER_ADDRESSING_CLAMP, v_addr=d.SHADER_ADDRESSING_CLAMP,
+            flags=d.SHADER_RASTER_ENABLED)
+        # Clip-space corners (y up) with v = 0 at the top of the screen.
+        vs = [((-1, -1, 0.5), (0, 0, 1), (0, 1)), ((1, -1, 0.5), (0, 0, 1), (1, 1)),
+              ((1, 1, 0.5), (0, 0, 1), (1, 0)), ((-1, 1, 0.5), (0, 0, 1), (0, 0))]
+        data = interleave(vs, with_uv=True)
+        mesh = rt64tpu_torch.Mesh(device, 0)
+        mesh.set_mesh(data, 4, data.shape[1] * 4,
+                      np.array([0, 1, 2, 0, 2, 3], np.uint32))
+        inst = rt64tpu_torch.Instance(scene)
+        inst.set_description(d.InstanceDesc(
+            mesh=mesh, shader=sh, material=d.Material(),
+            diffuse_texture=sky_texture(device),
+            flags=d.INSTANCE_RASTER_BACKGROUND))
+        out.append(inst)
+    if hud_quads:
+        sid = shader_id((0, 0, 0, d.MATERIAL_CC_SHADER_TEXEL0),
+                        (0, 0, 0, d.MATERIAL_CC_SHADER_INPUT_1), opt_alpha=True)
+        sh = rt64tpu_torch.Shader(device, sid, filter=d.SHADER_FILTER_POINT,
+                                  h_addr=d.SHADER_ADDRESSING_WRAP,
+                                  v_addr=d.SHADER_ADDRESSING_WRAP,
+                                  flags=d.SHADER_RASTER_ENABLED)
+        # Quads go round the edges: top, bottom, left, right, then the
+        # next slot along each edge.
+        per_edge = -(-hud_quads // 4)
+        qw, qh = 0.16, 0.10
+        vs, idx = [], []
+        for i in range(hud_quads):
+            side, slot = i % 4, i // 4
+            t = (slot + 0.5) / per_edge
+            if side < 2:
+                x0 = -0.8 + 1.6 * t - qw / 2
+                y0 = 0.84 if side == 0 else -0.94
+            else:
+                x0 = -0.96 if side == 2 else 0.8
+                y0 = 0.6 - 1.2 * t - qh / 2
+            base = len(vs)
+            for (x, y), uv in zip(((x0, y0), (x0 + qw, y0), (x0 + qw, y0 + qh),
+                                   (x0, y0 + qh)),
+                                  ((0, 1), (2, 1), (2, 0), (0, 0))):
+                vs.append(((x, y, 0.5), (0, 0, 1), uv))
+            idx += [base, base + 1, base + 2, base, base + 2, base + 3]
+        data = interleave(vs, input_color=(1.0, 1.0, 1.0, 0.85),
+                          use_alpha=True, with_uv=True)
+        mesh = rt64tpu_torch.Mesh(device, 0)
+        mesh.set_mesh(data, len(vs), data.shape[1] * 4, np.array(idx, np.uint32))
+        inst = rt64tpu_torch.Instance(scene)
+        inst.set_description(d.InstanceDesc(
+            mesh=mesh, shader=sh, material=d.Material(),
+            diffuse_texture=checker_texture(device, size=32, cell=4)))
+        out.append(inst)
+    return out
+
+
 def build_sample_scene(width=320, height=240, limits=None, di_samples=1,
                        gi_samples=1, denoiser=False, upscaler=d.UPSCALER_OFF,
                        sphere_reflection=0.3, with_glass=False, device=None):

@@ -380,3 +380,105 @@ def test_reflection_frame_launches_k1(card):
     lit = out.reflection.abs().amax(dim=0) > 0
     assert seeds.any() and torch.equal(lit & ~seeds, torch.zeros_like(lit))
     assert out.reflection.abs().max().item() > 0.05
+
+
+def _raster_inputs(seed, n=12, width=96, height=64):
+    """Seeded raster triangles over a random image: random combiners,
+    both texture bindings, point and bilinear filtering under every
+    addressing mode, a viewport, a scissor, a corner behind the camera."""
+    from rt64tpu_torch.ops import raster as pr
+    from rt64tpu_torch.ops import texture as ptex
+    from rt64tpu_torch.pipeline import rows as R
+    from rt64tpu_torch.pipeline.scene_buffers import build_quad_entries
+
+    rng = np.random.default_rng(seed)
+    pool, records, off = [], [], 0
+    for (tw, th), hm, vm in [((8, 8), 0, 0), ((5, 7), 1, 2), ((16, 4), 2, 1)]:
+        pool.append(build_quad_entries(
+            rng.integers(0, 256, (th, tw, 4), dtype=np.uint8), hm, vm))
+        records.append((off, tw, th))
+        off += tw * th
+    pool = np.concatenate(pool)
+    pool = np.concatenate([pool, np.zeros((-len(pool) % ptex.QPR, 4), np.uint32)])
+    irows = np.zeros((4, R.IROW), np.float32)
+    for i in range(4):
+        irows[i, R.I_CC] = R.pack_cc(list(rng.integers(0, 8, 4)),
+                                     list(rng.integers(0, 8, 4)))
+        irows[i, R.I_FLAGS] = (R.F_USE_T0 | R.F_USE_T1 * (i % 2)
+                               | R.F_OPT_ALPHA * (i != 3))
+        irows[i, R.I_TEX_D] = i % 3
+        irows[i, R.I_TEX_D2] = (i + 1) % 3 if i != 1 else -1
+        irows[i, R.I_SAMPLER] = (i % 2) + 4 * (i % 3) + 16 * ((i + 1) % 3)
+    irows[1, R.I_VIEWPORT : R.I_VIEWPORT + 4] = (8, 4, 64, 48)
+    irows[2, R.I_SCISSOR : R.I_SCISSOR + 4] = (10, 6, 50, 40)
+    rows = np.zeros((n, pr.RR_WIDTH), np.float32)
+    for t in range(n):
+        pos = np.concatenate([rng.uniform(-1.2, 1.2, (3, 2)), rng.uniform(0, 1, (3, 1)),
+                              rng.uniform(0.5, 2.0, (3, 1))], 1)
+        if t == 2:
+            pos[1, 3] = -0.7
+        rows[t, :12] = pos.reshape(-1)
+        rows[t, pr.RR_UV : pr.RR_INST] = rng.uniform(-0.5, 1.5, 30)
+        rows[t, pr.RR_INST] = t % 4
+    image = rng.uniform(0, 1, (4, height, width)).astype(np.float32)
+    return image, rows, irows, ptex.pack_pool_wide(pool).astype(np.int64), \
+        np.asarray(records, np.int32)
+
+
+def test_raster_card_matches_cpu(card):
+    """rasterize on the card against its plain run on the CPU (1e-5), and
+    the box evaluation against the full-screen one on the card."""
+    from rt64tpu_torch.ops import raster as pr
+
+    image, rows, irows, pool, records = _raster_inputs(21)
+    run = lambda where, box=True: pr.rasterize(
+        torch.from_numpy(image).to(where), torch.from_numpy(rows).to(where),
+        rows.shape[0], rows, irows, torch.from_numpy(pool).to(where), records,
+        bounding_box=box)
+    got = run(card)
+    torch.cuda.synchronize()
+    want = run("cpu")
+    assert (got.cpu() - want).abs().max().item() <= 1e-5
+    assert torch.equal(got, run(card, False))
+    assert not torch.equal(want, torch.from_numpy(image))
+
+
+def test_background_env_card_matches_cpu(card):
+    from rt64tpu_torch.ops import sky
+
+    rng = np.random.default_rng(4)
+    plane = torch.from_numpy(rng.uniform(0, 1, (3, 72, 128)).astype(np.float32))
+    dirs = torch.from_numpy(rng.normal(size=(3, 20000)).astype(np.float32))
+    # On the same (u, v) the fetch agrees to 1e-6. By direction, atan2 on
+    # the card and on the CPU may differ by an ulp of u, which the 128
+    # texels scale to ~1e-5 (1.3e-5 seen on an H100): 1e-4 end to end.
+    u, v = sky.fake_env_map_uv(dirs, 0.0)
+    got = sky.sample_background_2d(plane.to(card), u.to(card), v.to(card)).cpu()
+    assert (got - sky.sample_background_2d(plane, u, v)).abs().max().item() <= 1e-6
+    got = sky.sample_background_env(plane.to(card), dirs.to(card)).cpu()
+    want = sky.sample_background_env(plane, dirs)
+    assert (got - want).abs().max().item() <= 1e-4
+    got = sky.sample_background_grid(plane.to(card), 0.3, -0.2).cpu()
+    assert torch.equal(got, sky.sample_background_grid(plane, 0.3, -0.2))
+
+
+def test_layered_frame_card_matches_cpu(card):
+    """The sample scene without its sky plane, with the raster skybox and
+    HUD, gi 1, two draws; then the depth view with the HUD over it."""
+    from rt64tpu_torch import descriptors as d
+    from rt64tpu_torch.utils.ssim import ssim
+    from rt64tpu_torch.utils.testscenes import build_sample_scene, raster_layers
+
+    fbs = []
+    for device in ("cuda", "cpu"):
+        dev, scene, view = build_sample_scene(96, 64, gi_samples=1, device=device)
+        view.set_sky_plane(None)
+        raster_layers(scene, dev)
+        dev.draw()
+        dev.draw()
+        fbs.append(view.framebuffer()[..., :3].copy())
+        view.visualization_mode = d.VISUALIZATION_MODE_DEPTH
+        dev.draw()
+        fbs.append(view.framebuffer()[..., :3].copy())
+    assert ssim(fbs[0], fbs[2]) >= 0.99
+    assert ssim(fbs[1], fbs[3]) >= 0.99

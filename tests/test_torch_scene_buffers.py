@@ -1,7 +1,8 @@
 """Scene packing: every SceneBuffers field and ShadeFeatures flag the
 port's ScenePacker emits equals the JAX package's, exactly, on the
-sample and castle scenes; so do the per-frame GlobalParams of the two
-view drivers."""
+sample and castle scenes (the port's host copies of the raster tables,
+raster_host, equal the JAX fields they copy); so do the per-frame
+GlobalParams of the two view drivers."""
 
 import numpy as np
 import pytest
@@ -38,6 +39,20 @@ def test_scene_buffers_equal(name):
     assert psb.features._asdict() == jsb.features._asdict()
     for field in SceneBuffers._fields:
         if field == "features":
+            continue
+        if field == "raster_host":
+            # The port's host copies of the raster tables: the JAX
+            # package's rows up to each count, instance rows and records.
+            host = psb.raster_host
+            for layer in ("bg", "fg"):
+                n = int(np.asarray(getattr(jsb, f"raster_{layer}_count")))
+                np.testing.assert_array_equal(
+                    getattr(host, layer),
+                    np.asarray(getattr(jsb, f"raster_{layer}"))[:n])
+            np.testing.assert_array_equal(host.instance_rows,
+                                          np.asarray(jsb.instance_rows))
+            np.testing.assert_array_equal(host.quad_records,
+                                          np.asarray(jsb.quad_records))
             continue
         j, p = getattr(jsb, field), getattr(psb, field)
         if j is None or p is None:

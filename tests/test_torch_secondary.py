@@ -33,7 +33,10 @@ Measured on the CPU (torch 2.13, jax 0.9): (a) through convert SSIM
 1.1e-6 / 3.7e-7 (100 % within 1e-4), own API SSIM 1.0; (b) through
 convert SSIM 1.0, ids equal on every pixel, reflection max abs error
 3.1e-6, own API SSIM 1.0; (c) SSIM 1.0, ids equal, 4.2e-7 / 3.6e-7, with
-5 K3-twin and 3 K4-twin traces and no K1/K2-twin trace. Units: refract,
+5 K3-twin and 3 K4-twin traces and no K1/K2-twin trace. Since the port
+reads the fixed-grid sky in the tiled frame's order (the JAX package in
+row-major order, ROADMAP queue 3), (b) differs at sky pixels by at most
+2/255: SSIM 0.9984 through convert and through the own API. Units: refract,
 fresnel and the light within 1e-5 (chosen lights equal); the fold
 stores the same instance on every ray, what reads no hit distance is
 exactly equal, and colour / position / transparent differ by at most
