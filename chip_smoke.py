@@ -73,6 +73,18 @@ result line):
      tests/golden/sample_160x120.png, read by the port's PNG decoder;
      and the sample scene 160x120 without its sky plane, with the raster
      skybox and HUD, gi 1, two draws, card against CPU at SSIM >= 0.99;
+ 13. upscaled: bench configs 2, 3 and 4 exactly as bench.py builds them
+     (FSR auto; render 512x368, 960x552, 960x552) through Device.draw():
+     a settling draw, one draw with the temporal history dropped, which
+     must equal the bilinear upscale of its render (1e-5), then 5, 5 and
+     10 frames with the launch counts set to 0 just before and read just
+     after, and one profiled frame (device ms, launches); gates: render
+     and image sizes, K1/K2 at least once a frame, no K3/K4, at least 3
+     jitter values, a present that is not black;
+ 14. upscalers_small: the sample scene at display 160x120, three draws
+     each with FSR auto, XeSS auto and DLSS performance, and one FSR draw
+     with RCAS and motion blur over a moving sphere, card against CPU at
+     SSIM >= 0.99 per frame; the learned residual card vs CPU;
 then the kernel table line and the result line.
 
 It imports torch, numpy and rt64tpu_torch only.
@@ -909,8 +921,14 @@ def hud_coverage(rows, irows, w, h):
     return covered, maybe
 
 
-def kernel_launches(fn):
+def launches(fn):
     """CUDA kernels that one fn() launches, by torch.profiler."""
+    return profiled(fn)[0]
+
+
+def profiled(fn):
+    """(CUDA kernels one fn() launches, their summed device ms), by
+    torch.profiler."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -918,8 +936,9 @@ def kernel_launches(fn):
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(1 for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA)
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(kernels), sum(e.time_range.elapsed_us() for e in kernels) / 1e3
 
 
 def raster_scene(hud_quads, background):
@@ -998,10 +1017,10 @@ def phase_raster():
         width=GI_W, height=GI_H, max_reflections=REFL_BOUNCES, hud_quads=12,
         raster_bg_triangles=int(host.bg.shape[0]),
         raster_fg_triangles=int(host.fg.shape[0]),
-        launches_per_frame_all=kernel_launches(dev.draw),
-        bg_pass_ms=time_ms(bg_pass, 10), bg_pass_launches=kernel_launches(bg_pass),
-        fg_pass_ms=time_ms(fg_pass, 10), fg_pass_launches=kernel_launches(fg_pass),
-        env_gather_ms=time_ms(env, 10), env_gather_launches=kernel_launches(env),
+        launches_per_frame_all=launches(dev.draw),
+        bg_pass_ms=time_ms(bg_pass, 10), bg_pass_launches=launches(bg_pass),
+        fg_pass_ms=time_ms(fg_pass, 10), fg_pass_launches=launches(fg_pass),
+        env_gather_ms=time_ms(env, 10), env_gather_launches=launches(env),
         **gates)
     emit(row)
     check_frame(row, view, GI_W, GI_H)
@@ -1119,6 +1138,176 @@ def phase_raster_small():
     check(s >= 0.99, f"layered sample SSIM card vs CPU {s} < 0.99")
 
 
+# Bench configs 2-4 as bench.py builds them: (display size, gi_samples,
+# max_reflections, frames after the settling draw); the castle with
+# di_samples 1 and the denoiser left at build_castle_scene's default,
+# the FSR slot in auto mode.
+BENCH_UPSCALED = {
+    2: ((640, 480), 0, 0, 5),
+    3: ((1280, 720), 1, 0, 5),
+    4: ((1280, 720), 1, 2, 10),
+}
+# quality_resolution(AUTO, ...): 0.77 of the display, snapped to 64x8.
+BENCH_RENDER = {2: (512, 368), 3: (960, 552), 4: (960, 552)}
+# A draw with a fresh temporal history is the bilinear upscale.
+RESET_TOL = 1e-5
+JITTER_DISTINCT_MIN = 3
+
+
+class RecordJitter:
+    """Records gp.pixel_jitter of every frame the view renders, by
+    wrapping framegraph.render_frame while the block runs."""
+
+    def __enter__(self):
+        from rt64tpu_torch.pipeline import framegraph as fg
+
+        self.seen = []
+        self._fg, self._render = fg, fg.render_frame
+
+        def render(sb, gp, *args, **kw):
+            self.seen.append(tuple(gp.pixel_jitter))
+            return self._render(sb, gp, *args, **kw)
+
+        fg.render_frame = render
+        return self
+
+    def __exit__(self, *exc):
+        self._fg.render_frame = self._render
+
+
+def phase_upscaled():
+    """Bench configs 2, 3 and 4 as written (FSR auto: 640x480 from
+    512x368, 1280x720 from 960x552) through Device.draw(): a settling
+    draw, one draw with the temporal history dropped (a reset frame: the
+    image must equal bilinear_resize(rt_output) to RESET_TOL; the
+    settling draw climbs the alpha-boost ladder, whose re-renders
+    consume the history), then the config's frames with the launch
+    counts set to 0 just before and read just after, and one profiled
+    frame. Returns {config: row}."""
+    import numpy as np
+    import torch
+    from rt64tpu_torch import descriptors as d
+    from rt64tpu_torch.ops import filters
+    from rt64tpu_torch.utils.castle_scene import build_castle_scene
+
+    rows = {}
+    for n, ((w, h), gi, refl, frames) in BENCH_UPSCALED.items():
+        dev, _, view = build_castle_scene(w, h, di_samples=1, gi_samples=gi)
+        view.max_reflections = refl
+        view.desc.upscaler = d.UPSCALER_FSR
+        view.desc.upscaler_mode = d.UPSCALER_MODE_AUTO
+        dev.draw()
+        r = view._renderer
+        r._temporal = None
+        dev.draw()
+        out, cfg = r._pick_src
+        want = filters.bilinear_resize(out.rt_output, h, w)
+        reset_err = float((out.image - want).abs().max())
+        with RecordJitter() as jit:
+            frame_ms, counts, peak = draw_frames(dev, frames)
+        row = frame_row(f"upscaled_bench{n}", view, frames, frame_ms, counts, peak)
+        out, cfg = r._pick_src
+        all_launches, device_ms = profiled(dev.draw)
+        row.update(
+            config=n, display=(w, h), render=(cfg.rt_width, cfg.rt_height),
+            gi_samples=gi, max_reflections=refl,
+            upscaler=cfg.upscaler, image_shape=tuple(out.image.shape),
+            temporal_shape=tuple(out.temporal.shape),
+            reset_frame_max_abs=reset_err, jitter=jit.seen,
+            jitter_distinct=len(set(jit.seen)),
+            launches_per_frame_all=all_launches, device_ms_per_frame=device_ms,
+            present_max=int(view.framebuffer()[..., :3].max()))
+        emit(row)
+        rows[n] = row
+        check_frame(row, view, w, h)
+        check(row["render"] == BENCH_RENDER[n],
+              f"bench config {n} renders at {row['render']}, not {BENCH_RENDER[n]}")
+        check(row["image_shape"] == (3, h, w),
+              f"bench config {n} image {row['image_shape']}")
+        check(counts["opaque_launches"] >= frames
+              and counts["shadow_launches"] >= frames,
+              f"K1/K2 launched {counts} in {frames} bench config {n} frames")
+        check(counts["opaque_mt_launches"] == 0
+              and counts["shadow_mt_launches"] == 0,
+              f"bench config {n} launched K3 or K4")
+        check(reset_err <= RESET_TOL,
+              f"bench config {n}: the reset frame is {reset_err} from the "
+              "bilinear upscale")
+        check(row["jitter_distinct"] >= JITTER_DISTINCT_MIN,
+              f"bench config {n}: {row['jitter_distinct']} jitter values")
+        check(row["present_max"] > 0, f"bench config {n} presents black")
+        del dev, view, r, out, want
+        torch.cuda.empty_cache()
+    return rows
+
+
+def phase_upscalers_small():
+    """Every upscaler slot card against CPU: the sample scene with its
+    defaults at display 160x120, three draws each with FSR auto (render
+    128x96), XeSS auto and DLSS performance, then one more FSR draw with
+    upscaler_sharpness 0.5 and motion_blur_strength 0.5 over a sphere
+    that moved since the last frame; SSIM >= 0.99 per frame. Also the
+    learned residual at the DLSS draw's inputs, card against CPU."""
+    import numpy as np
+    import torch
+    from rt64tpu_torch import descriptors as d
+    from rt64tpu_torch.models import learned_upscaler
+    from rt64tpu_torch.ops import filters, math3d
+    from rt64tpu_torch.pipeline import framegraph as fg
+    from rt64tpu_torch.utils.ssim import ssim
+    from rt64tpu_torch.utils.testscenes import build_sample_scene
+
+    w, h = 160, 120
+    slots = {"fsr": (d.UPSCALER_FSR, d.UPSCALER_MODE_AUTO),
+             "xess": (d.UPSCALER_XESS, d.UPSCALER_MODE_AUTO),
+             "dlss": (d.UPSCALER_DLSS, d.UPSCALER_MODE_PERFORMANCE)}
+    row = dict(phase="upscalers_small_card_vs_cpu", width=w, height=h)
+    for name, (upscaler, mode) in slots.items():
+        fbs, renders = {}, {}
+        for where in ("cuda", "cpu"):
+            dev, scene, view = build_sample_scene(w, h, upscaler=upscaler,
+                                                  device=where)
+            view.desc.upscaler_mode = mode
+            fbs[where] = []
+            for _ in range(3):
+                dev.draw()
+                fbs[where].append(view.framebuffer()[..., :3].copy())
+            if name == "fsr":
+                view.desc.upscaler_sharpness = 0.5
+                view.desc.motion_blur_strength = 0.5
+                sphere = scene.instances[0]
+                sphere.desc.previous_transform = (
+                    np.asarray(sphere.desc.transform, np.float32)
+                    @ math3d.translation(-0.4, 0.0, 0.0))
+                sphere.set_description(sphere.desc)
+                dev.draw()
+                fbs[where].append(view.framebuffer()[..., :3].copy())
+            cfg = view._renderer._config()
+            renders[where] = (cfg.rt_width, cfg.rt_height)
+            if name == "dlss" and where == "cuda":
+                out = view._renderer._last
+                g = out.gbuffers
+                x = filters.bilinear_resize(torch.cat([
+                    out.rt_output, fg.to_image(cfg, g.depth)[None],
+                    fg.to_image(cfg, g.flow), fg.to_image(cfg, g.reactive)[None],
+                ], 0), h, w)
+                res_card = learned_upscaler.residual(x).cpu()
+                res_cpu = learned_upscaler.residual(x.cpu())
+                row["dlss_residual_max_abs"] = float(res_card.abs().max())
+                row["dlss_residual_card_vs_cpu_max_abs"] = float(
+                    (res_card - res_cpu).abs().max())
+        s = [ssim(a, b) for a, b in zip(fbs["cuda"], fbs["cpu"])]
+        row[name] = dict(render=renders["cuda"], ssim=s,
+                         max_abs=[int(np.abs(a.astype(np.int16) - b).max())
+                                  for a, b in zip(fbs["cuda"], fbs["cpu"])])
+        check(renders["cuda"] == renders["cpu"],
+              f"{name}: render {renders} card vs CPU")
+        check(min(s) >= 0.99, f"{name}: SSIM card vs CPU {s} < 0.99")
+    emit(row)
+    check(row["fsr"]["render"] == (128, 96), f"FSR auto renders {row['fsr']['render']}")
+    return row
+
+
 def run():
     try:
         import torch
@@ -1224,6 +1413,11 @@ def run():
     phase_golden()
     phase_raster_small()
 
+    # 13. bench configs 2-4 as written (FSR auto); 14. every upscaler
+    # slot, RCAS and motion blur card vs CPU
+    upscaled = phase_upscaled()
+    phase_upscalers_small()
+
     measured = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     # Every kernel also carries its bounce launch's numbers, as
     # bounce_<key>. Every number of this line but bound_ms was measured in
@@ -1233,7 +1427,8 @@ def run():
     # reflection_<key>, with the launches of the path that ran them: the
     # 10 castle-refl frames (K1), the recorded large-castle-refl draw (K3).
     # K1 and K2 also carry their launches in the 10 castle-raster frames,
-    # as raster_launches.
+    # as raster_launches, and in the frames of each upscaled bench config,
+    # as upscaled_launches.
     kernel = lambda name, src, line, launches, row, refl_launches=None, **more: dict(
         name=name, route="cuda", source=f"rt64tpu_torch/csrc/{src}",
         replaces=f"rt64tpu/ops/tracer_pallas.py:{line}", launches=launches,
@@ -1246,10 +1441,14 @@ def run():
     emit({"kernels": [
         kernel("trace_opaque_walk<WoopClusters> (K1)", "packet_tracer.cu",
                764, main["opaque_launches"], k1, refl["opaque_launches"],
-               raster_launches=raster["opaque_launches"]),
+               raster_launches=raster["opaque_launches"],
+               upscaled_launches={f"bench{n}": row["opaque_launches"]
+                                  for n, row in upscaled.items()}),
         kernel("trace_shadow_walk<WoopClusters> (K2)", "packet_tracer.cu",
                981, main["shadow_launches"], k2,
-               raster_launches=raster["shadow_launches"]),
+               raster_launches=raster["shadow_launches"],
+               upscaled_launches={f"bench{n}": row["shadow_launches"]
+                                  for n, row in upscaled.items()}),
         kernel("trace_opaque_walk<MtClusters> (K3)", "mt_tracer.cu", 572,
                large["opaque_mt_launches"], k3,
                k3["reflection"]["launches_per_frame"]),

@@ -452,9 +452,11 @@ class View:
         self.view_matrix = math3d.look_at_rh(pos, focus_w, (0.0, 1.0, 0.0))
 
     def get_upscaler_support(self, upscaler: int) -> bool:
-        """GetViewUpscalerSupport: the port renders with the upscaler off
-        so far (ROADMAP queue 1 item 12 brings the others)."""
-        return upscaler == d.UPSCALER_OFF
+        """GetViewUpscalerSupport: every slot renders (models/)."""
+        return upscaler in (
+            d.UPSCALER_OFF, d.UPSCALER_AUTO, d.UPSCALER_DLSS, d.UPSCALER_FSR,
+            d.UPSCALER_XESS,
+        )
 
 
 # Packed light layout (columns), matching LightInfo (Lights.hlsli:9-19):

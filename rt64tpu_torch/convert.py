@@ -54,11 +54,26 @@ def scene_buffers_from_numpy(fields: dict, features, device) -> SceneBuffers:
     )
 
 
+# GlobalParams fields the JAX package may leave None (no upscaler ran):
+# their values when absent.
+_GP_DEFAULTS = dict(temporal_reset=np.bool_(False),
+                    upscaler_sharpness=np.float32(0.0))
+
+
 def global_params_from_numpy(fields: dict, device) -> fg.GlobalParams:
-    """GlobalParams from a dict of host arrays keyed by field name."""
-    return fg.GlobalParams(
-        *(_tensor(fields[name], device) for name in fg.GlobalParams._fields)
-    )
+    """GlobalParams from a dict of host arrays keyed by field name.
+    pixel_jitter stays on the host as two floats (its f32 values);
+    temporal_reset and upscaler_sharpness may be absent or None."""
+    def value(name):
+        a = fields.get(name)
+        if a is None or (isinstance(a, np.ndarray) and a.dtype == object
+                         and a.item() is None):
+            a = _GP_DEFAULTS[name]
+        if name == "pixel_jitter":
+            return tuple(float(v) for v in np.asarray(a, np.float32))
+        return _tensor(a, device)
+
+    return fg.GlobalParams(*(value(name) for name in fg.GlobalParams._fields))
 
 
 def history_from_numpy(fields: dict, device) -> fg.History:

@@ -66,6 +66,22 @@ def translation(x: float, y: float, z: float):
     return m
 
 
+def halton(i: int, b: int) -> float:
+    """HaltonSequence (rt64_common.h:347-357)."""
+    f, r = 1.0, 0.0
+    while i > 0:
+        f /= b
+        r += f * (i % b)
+        i //= b
+    return r
+
+
+def halton_jitter(frame: int, phases: int):
+    """HaltonJitter (rt64_common.h:359-361): in [-0.5, 0.5]^2."""
+    i = frame % phases + 1
+    return (halton(i, 2) - 0.5, halton(i, 3) - 0.5)
+
+
 def camera_uvw(view_i, fov_radians: float, aspect: float, near: float, far: float):
     """Pinhole camera basis (rt64_view.cpp:993-1010).
 

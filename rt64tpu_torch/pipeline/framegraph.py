@@ -8,7 +8,10 @@ functions over device-resident planes:
        on opted-in diffuse textures) -> batched shadow launch
     -> direct -> indirect (1-bounce GI, reprojected history)
     -> refraction -> reflection bounces (max_reflections)
-    -> GI denoise filter -> compose -> debug view -> raster foreground
+    -> GI denoise filter -> compose -> upscale to the display size
+       (FSR/XeSS temporal accumulators, the learned DLSS slot, or a
+       bilinear resize) -> RCAS -> motion blur or debug view
+    -> raster foreground
 
 with the raster background composited over the host's base plane first
 (ops/raster.py): primary misses read it on the pixel grid, bounce and
@@ -16,20 +19,20 @@ mirror misses as an environment map.
 
 All per-pixel data is planar ((C, N) / (C, H, W)) in the tile-swizzled
 pixel order, so each 512-ray block is an 8x64 screen tile. Raygen math
-mirrors the HLSL raygen shaders (citations inline).
-
-The upscalers and motion blur raise NotImplementedError naming the
-ROADMAP item that brings them (check_slice).
+mirrors the HLSL raygen shaders (citations inline). Display-size
+images are row-major (3, DH, DW).
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from rt64tpu_torch import descriptors as d
+from rt64tpu_torch.models import learned_upscaler
+from rt64tpu_torch.models import upscaler as ups
 from rt64tpu_torch.ops import (bluenoise, filters, fog, lighting, raster,
                                 raydiff, sky, tracer)
 from rt64tpu_torch.ops import random as rnd
@@ -59,6 +62,7 @@ class RenderConfig:
     k_primary: int = 4  # alpha hit slots (<= MAX_HIT_QUERIES 16)
     k_secondary: int = 2
     k_shadow: int = 1
+    motion_blur_samples: int = 32  # rt64_view.cpp:53
     motion_blur_enabled: bool = True
     denoiser_enabled: bool = False
     gi_filter_passes: int = 5  # rt64_view.cpp:1512-1530
@@ -68,6 +72,8 @@ class RenderConfig:
     # Compacted-shade capacity multiplier: grown when a frame reports
     # alpha_dropped > 0 (view.py).
     alpha_shade_boost: int = 1
+    # RCAS gate: the view sets it when an upscaler runs with a sharpness
+    # above 0 (gp.upscaler_sharpness carries the strength).
     sharpen_enabled: bool = False
 
     # Tile-swizzled ray order: each 8x64 pixel tile is contiguous in the
@@ -87,7 +93,9 @@ class RenderConfig:
 
 class GlobalParams(NamedTuple):
     """Per-frame parameters (GlobalParams.hlsli:8-43), tensors on the
-    frame's device."""
+    frame's device, but for pixel_jitter: the view computes the jitter
+    once on the host, and the rays, the fixed-grid background and the
+    sky sample all read that one value."""
 
     view: torch.Tensor
     view_i: torch.Tensor
@@ -99,7 +107,7 @@ class GlobalParams(NamedTuple):
     camera_u: torch.Tensor
     camera_v: torch.Tensor
     camera_w: torch.Tensor
-    pixel_jitter: torch.Tensor  # (2,)
+    pixel_jitter: tuple  # (x, y) host floats, f32 values
     ambient_base: torch.Tensor  # (3,)
     ambient_no_gi: torch.Tensor
     eye_light_diffuse: torch.Tensor
@@ -115,6 +123,11 @@ class GlobalParams(NamedTuple):
     di_reproject: torch.Tensor  # bool
     gi_reproject: torch.Tensor  # bool
     binary_lock_mask: torch.Tensor  # bool
+    # resetAccumulation of the temporal upscalers (rt64_upscaler.h:40).
+    temporal_reset: torch.Tensor  # bool
+    # upscalerSharpness (rt64_upscaler.h:25-41): the RCAS strength when
+    # cfg.sharpen_enabled (rt64_fsr.cpp:141-166, rt64_dlss.cpp:205).
+    upscaler_sharpness: torch.Tensor  # f32
 
 
 class History(NamedTuple):
@@ -166,24 +179,9 @@ class FrameOutputs(NamedTuple):
     refraction: torch.Tensor  # (3, N)
     rt_output: torch.Tensor  # (3, H, W)
     alpha_dropped: torch.Tensor  # () (see GBuffers.alpha_dropped)
-
-
-def check_slice(cfg: RenderConfig) -> None:
-    """Raise for every feature the port does not render yet, naming the
-    ROADMAP queue-1 item that brings it. Nothing is skipped silently."""
-    todo = [
-        (cfg.upscaler != d.UPSCALER_OFF
-         or (cfg.display_height, cfg.display_width)
-         != (cfg.rt_height, cfg.rt_width),
-         "upscaling and resolution scaling", 12),
-        (cfg.sharpen_enabled, "RCAS sharpening", 12),
-        (cfg.motion_blur_enabled, "motion blur", 12),
-    ]
-    for missing, what, item in todo:
-        if missing:
-            raise NotImplementedError(
-                f"{what} is not ported yet: ROADMAP queue 1 item {item}"
-            )
+    # The temporal upscaler's display-size state when the FSR or XeSS
+    # slot ran (the next frame's `temporal`); else None.
+    temporal: Optional[torch.Tensor] = None
 
 
 def make_trace_scene(sb, rows_t, alpha_cap: int) -> tracer.TraceScene:
@@ -1196,6 +1194,36 @@ def _raster_layer(image, sb: SceneBuffers, layer: str):
                             host.quad_records)
 
 
+def background(sb: SceneBuffers, gp: GlobalParams, cfg: RenderConfig,
+               bg_planes):
+    """The raster background composited over the base plane bg_planes
+    (3, H, W) (rt64_view.cpp:1292-1319), and the fixed-grid background +
+    sky sample the primary and refracted misses read
+    (PrimaryRayGen.hlsl:47-56), (3, N) in the frame's pixel order. Both
+    grids read gp.pixel_jitter. Without raster-background triangles none
+    of the background work runs (the plane stays black)."""
+    h, w = cfg.rt_height, cfg.rt_width
+    dev = gp.view.device
+    if sb.features.has_raster_bg:
+        bg_rgba = torch.cat([bg_planes, torch.ones((1, h, w), device=dev)], 0)
+        bg_planes = _raster_layer(bg_rgba, sb, "bg")[:3]
+        bg_color = sky.sample_background_grid(bg_planes, *gp.pixel_jitter)
+    else:
+        bg_color = torch.zeros((3, h * w), device=dev)
+    if sb.sky_plane is not None:
+        sky_c = sky.sample_sky_2d_grid(
+            sb.sky_plane, gp.sky_plane_rec, gp.pixel_jitter, gp.view_i,
+            torch.tensor([cfg.display_width, cfg.display_height],
+                         dtype=torch.float32, device=dev),
+            gp.sky_yaw_offset, gp.sky_diffuse_mult, gp.sky_hsl_mod,
+            w, h, h,
+        )
+        bg_color = bg_color * (1.0 - sky_c[3])[None] + sky_c[:3] * sky_c[3][None]
+    # Both grid samples come in row-major pixel order; the rays read them
+    # in the frame's (the 8x64 tile order of a tiled frame).
+    return bg_planes, from_image(cfg, bg_color.reshape(3, h, w))
+
+
 def render_frame(
     sb: SceneBuffers,
     gp: GlobalParams,
@@ -1204,7 +1232,7 @@ def render_frame(
     cfg: RenderConfig,
     visualization_mode: int = 0,
     bg_planes=None,
-    jitter=(0.0, 0.0),
+    temporal=None,
 ) -> FrameOutputs:
     """The full frame: View::render as one function.
 
@@ -1212,10 +1240,9 @@ def render_frame(
     onto (the view passes a black one, as the reference's host clears
     to black before the background instances draw,
     rt64_view.cpp:1292-1319). Read only when the scene has
-    raster-background triangles. jitter: gp.pixel_jitter on the host
-    (the view builds both from one value); the fixed-grid background
-    and sky samples read it."""
-    check_slice(cfg)
+    raster-background triangles. temporal: the temporal upscaler's
+    display-size state from the last frame (FrameOutputs.temporal), or
+    None for a fresh one."""
     h, w = cfg.rt_height, cfg.rt_width
     n = h * w
     dev = gp.view.device
@@ -1235,28 +1262,7 @@ def render_frame(
         )
     bn = bluenoise.grid_sampler(bn_table, w, h, swizzle=swz)
 
-    # Raster background pass (rt64_view.cpp:1292-1319): composited over
-    # the base plane; rays sample the result. Without raster-background
-    # triangles none of the background work runs (the plane is black).
-    if sb.features.has_raster_bg:
-        bg_rgba = torch.cat([bg_planes, torch.ones((1, h, w), device=dev)], 0)
-        bg_planes = _raster_layer(bg_rgba, sb, "bg")[:3]
-        bg_color = sky.sample_background_grid(bg_planes, *jitter)
-    else:
-        bg_color = torch.zeros((3, n), device=dev)
-    # Fixed-grid background + sky (PrimaryRayGen.hlsl:47-56).
-    if sb.sky_plane is not None:
-        sky_c = sky.sample_sky_2d_grid(
-            sb.sky_plane, gp.sky_plane_rec, jitter, gp.view_i,
-            torch.tensor([cfg.display_width, cfg.display_height],
-                         dtype=torch.float32, device=dev),
-            gp.sky_yaw_offset, gp.sky_diffuse_mult, gp.sky_hsl_mod,
-            w, h, h,
-        )
-        bg_color = bg_color * (1.0 - sky_c[3])[None] + sky_c[:3] * sky_c[3][None]
-    # Both grid samples come in row-major pixel order; the rays read them
-    # in the frame's (the 8x64 tile order of a tiled frame).
-    bg_color = from_image(cfg, bg_color.reshape(3, h, w))
+    bg_planes, bg_color = background(sb, gp, cfg, bg_planes)
 
     t_min = torch.full((n,), tracer.RAY_MIN_DISTANCE, device=dev)
     t_max = torch.full((n,), tracer.RAY_MAX_DISTANCE, device=dev)
@@ -1333,10 +1339,18 @@ def render_frame(
         refl.rgb, refraction_rgb, g.transparent,
     ))
 
-    # The display image is the frame at native size (check_slice refuses
-    # scaling and motion blur until item 12), or the debug view.
-    disp = rt_rgb
-    if visualization_mode != 0:
+    # Upscale to the display size (rt64_view.cpp:114-141, 1584-1618);
+    # the temporal state rides the frame outputs. Motion blur, or the
+    # debug view, replaces the display image after.
+    disp, new_temporal = upscale(cfg, gp, g, rt_rgb, temporal)
+    if visualization_mode == 0:
+        if cfg.motion_blur_enabled:
+            flow_disp = filters.bilinear_resize(
+                to_image(cfg, g.flow), cfg.display_height, cfg.display_width)
+            disp = filters.motion_blur(
+                disp, flow_disp, (float(w), float(h)),
+                gp.motion_blur_strength, cfg.motion_blur_samples)
+    else:
         disp = debug_visualization(
             visualization_mode, cfg, g, direct_accum, indirect_accum,
             filtered_direct, filtered_indirect, refl.rgb, refraction_rgb,
@@ -1362,7 +1376,50 @@ def render_frame(
         refraction=refraction_rgb,
         rt_output=rt_rgb,
         alpha_dropped=alpha_dropped,
+        temporal=new_temporal,
     )
+
+
+def upscale(cfg, gp, g: GBuffers, rt_rgb, temporal=None):
+    """The render-size frame rt_rgb (3, H, W) at the display size, and
+    the temporal upscaler's next state (None for the stateless slots):
+    the FSR (and AUTO) slot's temporal accumulator, the XeSS slot's
+    depth-validated one, the DLSS slot's CNN, or a bilinear resize with
+    the upscaler off; then RCAS when cfg.sharpen_enabled. The upscalers
+    read the G-buffer planes as images (to_image). temporal None starts
+    a fresh history (reset); otherwise gp.temporal_reset says."""
+    dh, dw = cfg.display_height, cfg.display_width
+    if (dh, dw) == (cfg.rt_height, cfg.rt_width):
+        return rt_rgb, None
+    img = lambda plane: to_image(cfg, plane)
+    new_temporal = None
+    channels = ups.temporal_channels(cfg.upscaler)
+    if channels:
+        reset = gp.temporal_reset
+        if temporal is None:
+            temporal = torch.zeros((channels, dh, dw), device=rt_rgb.device)
+            reset = True
+    if cfg.upscaler in (d.UPSCALER_FSR, d.UPSCALER_AUTO):
+        disp = ups.temporal_accumulate(
+            temporal, rt_rgb, img(g.flow), img(g.reactive), img(g.lock),
+            reset, dh, dw)
+        new_temporal = disp
+    elif cfg.upscaler == d.UPSCALER_XESS:
+        disp, new_temporal = ups.xess_accumulate(
+            temporal, rt_rgb, img(g.depth), img(g.flow), img(g.reactive),
+            reset, dh, dw)
+    elif cfg.upscaler == d.UPSCALER_DLSS:
+        disp = learned_upscaler._run(
+            rt_rgb, img(g.depth), img(g.flow), img(g.reactive), dh, dw)
+    else:
+        disp = filters.bilinear_resize(rt_rgb, dh, dw)
+    # RCAS after the history was taken: the accumulator feeds back the
+    # unsharpened image. Its lobe bound assumes display range [0, 1], so
+    # clip first (the present clips the same way).
+    if cfg.sharpen_enabled and cfg.upscaler != d.UPSCALER_OFF:
+        disp = filters.rcas(torch.clamp(disp, 0.0, 1.0),
+                            gp.upscaler_sharpness)
+    return disp, new_temporal
 
 
 def debug_visualization(
@@ -1370,7 +1427,7 @@ def debug_visualization(
     filtered_direct, filtered_indirect, reflection, refraction,
 ):
     """DebugPS.hlsl visualization modes (17 in all; an unknown mode
-    shows 0.5 grey). Returns (3, H, W) at the frame's size."""
+    shows 0.5 grey). Returns (3, DH, DW): the view at the display size."""
     h, w = cfg.rt_height, cfg.rt_width
 
     def img3(x):
@@ -1399,8 +1456,10 @@ def debug_visualization(
     }
     make = planes.get(mode)
     if make is None:
-        return torch.full((3, h, w), 0.5, device=g.depth.device)
-    return make()
+        out = torch.full((3, h, w), 0.5, device=g.depth.device)
+    else:
+        out = make()
+    return filters.bilinear_resize(out, cfg.display_height, cfg.display_width)
 
 
 def _instance_colors(instance):

@@ -3,10 +3,11 @@
 The View::update / View::render split of the reference
 (rt64_view.cpp:1053-1178 / :1180-1667): update() assembles scene
 buffers (instance classification + uploads), render() runs the frame
-and retains the outputs for presentation and picking. Frames are full
-sync, like the reference (rt64_device.cpp:1006-1025): the present reads
-the RGB8 frame back, and the alpha-overflow check reads one device
-scalar per frame.
+and retains the outputs for presentation and picking, and carries the
+temporal upscaler's display-size history from frame to frame. Frames
+are full sync, like the reference (rt64_device.cpp:1006-1025): the
+present reads the RGB8 frame back, and the alpha-overflow check reads
+one device scalar per frame.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import torch
 
 from rt64tpu_torch import descriptors as d
 from rt64tpu_torch.convert import global_params_from_numpy
+from rt64tpu_torch.models import upscaler as ups
 from rt64tpu_torch.ops import bluenoise, math3d
 from rt64tpu_torch.pipeline import framegraph as fg
 from rt64tpu_torch.pipeline.scene_buffers import ScenePacker
@@ -42,6 +44,7 @@ class ViewRenderer:
         self.active_instances = []
         self._sb = None
         self._sky_rec = -1
+        self._temporal = None  # the temporal upscaler's history (display size)
         self._prev_view_proj = None
         self._prev_view_i = None
         self._last = None
@@ -49,9 +52,6 @@ class ViewRenderer:
         self._pick_src = None  # (FrameOutputs, cfg) of the presented frame
         self._pick_plane = None  # cached on-demand picking readback
         self._bg_cache = {}  # (h, w) -> the black base plane on the device
-        # The pixel jitter on the host (zero: it only runs while an
-        # upscaler does, rt64_view.cpp:1273-1281, ROADMAP item 12).
-        self._jitter = (0.0, 0.0)
 
     # -- update: the View::update analog -----------------------------------
     def update(self):
@@ -96,16 +96,32 @@ class ViewRenderer:
     # -- render: the View::render analog ------------------------------------
     def render(self, delta_time_ms: float):
         cfg = self._config()
-        gp = self._global_params(cfg)
         n = cfg.rt_height * cfg.rt_width
         if self.history is None or self.history.depth.shape[0] != n:
             self.history = fg.History.zeros(cfg.rt_height, cfg.rt_width,
                                             self.device)
+        # The temporal upscaler's history (FSR and XeSS slots): fresh
+        # (zeros and resetAccumulation) on the first frame and after any
+        # change of shape (rt64_view.cpp:114-141).
+        scaling = (cfg.display_height, cfg.display_width) != (
+            cfg.rt_height, cfg.rt_width)
+        channels = ups.temporal_channels(cfg.upscaler)
+        fresh = False
+        if scaling and channels:
+            shape = (channels, cfg.display_height, cfg.display_width)
+            if self._temporal is None or tuple(self._temporal.shape) != shape:
+                self._temporal = torch.zeros(shape, device=self.device)
+                fresh = True
+        else:
+            self._temporal = None
+        gp = self._global_params(cfg, temporal_reset=fresh)
         out = self._frame(cfg, gp)
         # Capacity auto-grow + SAME-FRAME re-render: if this frame dropped
         # alpha hits (compacted-shade overflow), double the capacity boost
-        # and render the frame again before presenting. The drop scalar is
-        # the frame's one host sync apart from the present.
+        # and render the frame again before presenting. The re-render
+        # consumes the dropped frame's output history (one more temporal
+        # step), as the JAX package does. The drop scalar is the frame's
+        # one host sync apart from the present.
         while int(out.alpha_dropped) > 0 and self._alpha_boost < MAX_ALPHA_BOOST:
             self._alpha_boost = min(self._alpha_boost * 2, MAX_ALPHA_BOOST)
             breadcrumb(f"alpha shade capacity overflow; boost -> "
@@ -125,8 +141,9 @@ class ViewRenderer:
         out = fg.render_frame(self._sb, gp, self.history, self.bn_table, cfg,
                               visualization_mode=self.view.visualization_mode,
                               bg_planes=self._background_planes(cfg),
-                              jitter=self._jitter)
+                              temporal=self._temporal)
         self.history = out.history
+        self._temporal = out.temporal
         return out
 
     def _background_planes(self, cfg):
@@ -161,8 +178,12 @@ class ViewRenderer:
         view = self.view
         vd = view.desc
         dw, dh = view.width, view.height
-        rw = max(1, int(dw * vd.resolution_scale))
-        rh = max(1, int(dh * vd.resolution_scale))
+        if vd.upscaler != d.UPSCALER_OFF:
+            rw, rh = ups.quality_resolution(vd.upscaler_mode, dw, dh,
+                                            upscaler=vd.upscaler)
+        else:
+            rw = max(1, int(dw * vd.resolution_scale))
+            rh = max(1, int(dh * vd.resolution_scale))
         # Static pass skips from scene-wide material knowledge: a pass no
         # material can seed is not run at all.
         mats = [i.desc.material for i in view.scene.instances]
@@ -184,12 +205,13 @@ class ViewRenderer:
             denoiser_enabled=bool(vd.denoiser_enabled),
             motion_blur_enabled=float(vd.motion_blur_strength) > 0.0,
             upscaler=int(vd.upscaler),
-            sharpen_enabled=False,
+            sharpen_enabled=(vd.upscaler != d.UPSCALER_OFF
+                             and float(vd.upscaler_sharpness) > 0.0),
             alpha_cap=self.packer.alpha_cap,
             alpha_shade_boost=self._alpha_boost,
         )
 
-    def _global_params(self, cfg) -> fg.GlobalParams:
+    def _global_params(self, cfg, temporal_reset=False) -> fg.GlobalParams:
         view = self.view
         desc = view.scene.desc
         vmat = view.view_matrix.astype(np.float32)
@@ -215,6 +237,15 @@ class ViewRenderer:
             view.near_dist, view.far_dist,
         )
         vd = view.desc
+        # Jitter only while an upscaler runs (rt64_view.cpp:1273-1281):
+        # this one host value feeds the rays, the fixed-grid background
+        # and the sky sample.
+        if vd.upscaler != d.UPSCALER_OFF:
+            phases = ups.jitter_phase_count(cfg.rt_width, cfg.display_width,
+                                            upscaler=cfg.upscaler)
+            jitter = math3d.halton_jitter(view.frame_count, phases)
+        else:
+            jitter = (0.0, 0.0)
         f32 = np.float32
         return global_params_from_numpy(dict(
             view=vmat,
@@ -227,7 +258,7 @@ class ViewRenderer:
             camera_u=np.asarray(cam_u, f32),
             camera_v=np.asarray(cam_v, f32),
             camera_w=np.asarray(cam_w, f32),
-            pixel_jitter=np.asarray(self._jitter, f32),
+            pixel_jitter=np.asarray(jitter, f32),
             ambient_base=np.asarray(desc.ambient_base_color, f32),
             ambient_no_gi=np.asarray(desc.ambient_no_gi_color, f32),
             eye_light_diffuse=np.asarray(desc.eye_light_diffuse_color, f32),
@@ -243,5 +274,7 @@ class ViewRenderer:
             di_reproject=np.bool_(False),  # DI_REPROJECTION_SUPPORT undefined
             gi_reproject=np.bool_(bool(vd.denoiser_enabled) and vd.gi_samples > 0),
             binary_lock_mask=np.bool_(vd.upscaler != d.UPSCALER_FSR),
+            temporal_reset=np.bool_(temporal_reset),
+            upscaler_sharpness=np.float32(vd.upscaler_sharpness),
         ), self.device)
 

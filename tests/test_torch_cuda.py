@@ -482,3 +482,42 @@ def test_layered_frame_card_matches_cpu(card):
         fbs.append(view.framebuffer()[..., :3].copy())
     assert ssim(fbs[0], fbs[2]) >= 0.99
     assert ssim(fbs[1], fbs[3]) >= 0.99
+
+
+def test_upscalers_card_match_cpu_under_tf32(card):
+    """The resize, both accumulators and the learned slot on the card
+    against the CPU, with the caller's TF32 matmul switch on: the
+    resize's products are plain f32 multiplies and adds, so the history
+    the accumulators feed back keeps f32 whatever the caller set."""
+    from rt64tpu_torch.models import learned_upscaler as lus
+    from rt64tpu_torch.models import upscaler as ups
+    from rt64tpu_torch.ops import filters
+
+    rng = np.random.default_rng(9)
+    f = lambda *s, lo=0.0, hi=1.0: torch.from_numpy(
+        rng.uniform(lo, hi, s).astype(np.float32))
+    rt, depth, flow = f(3, 96, 128), f(96, 128, lo=1, hi=90), f(2, 96, 128, lo=-3, hi=3)
+    reactive, lock, hist = f(96, 128), (f(96, 128) > 0.7).float(), f(4, 120, 160)
+    inputs = dict(fsr=(hist[:3], rt, flow, reactive, lock),
+                  xess=(hist, rt, depth, flow, reactive))
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for kernel in ("bilinear", "catmull"):
+            got = filters.bilinear_resize(rt.to(card), 120, 160, kernel).cpu()
+            want = filters.bilinear_resize(rt, 120, 160, kernel)
+            assert (got - want).abs().max().item() <= 1e-6
+        for name, fn in (("fsr", ups.temporal_accumulate),
+                         ("xess", ups.xess_accumulate)):
+            got = fn(*(t.to(card) for t in inputs[name]), False, 120, 160)
+            want = fn(*inputs[name], False, 120, 160)
+            got, want = (got, want) if name == "fsr" else (got[1], want[1])
+            assert (got.cpu() - want).abs().max().item() <= 1e-5
+        got = lus._run(rt.to(card), depth.to(card), flow.to(card),
+                       reactive.to(card), 120, 160).cpu()
+        want = lus._run(rt, depth, flow, reactive, 120, 160)
+        # bf16 convolutions: cuDNN and oneDNN may round a residual
+        # (at most ~3e-4) one bf16 step apart.
+        assert (got - want).abs().max().item() <= 1e-5
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before

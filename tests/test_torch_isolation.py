@@ -1,7 +1,7 @@
 """rt64tpu_torch stands alone: it imports neither JAX nor the rt64tpu
 package, its Device defaults to the CUDA card, and every feature it
 does not render yet raises NotImplementedError instead of being
-skipped (the upscalers, motion blur and the pipelined view)."""
+skipped (the pipelined view)."""
 
 import ast
 import os
@@ -9,10 +9,12 @@ import subprocess
 import sys
 import textwrap
 
+import numpy as np
 import pytest
 import torch
 
 from rt64tpu_torch import descriptors as d
+from rt64tpu_torch.ops import math3d
 from rt64tpu_torch.utils.testscenes import build_sample_scene, hud_triangle
 
 
@@ -129,7 +131,14 @@ def _resolution_scale(dev, scene, view):
 
 
 def _motion_blur(dev, scene, view):
+    # The blur follows the flow: the sphere moved since the last frame
+    # (its previous transform lies 0.4 to the left), the camera did not.
     view.desc.motion_blur_strength = 0.5
+    sphere = scene.instances[0]
+    sphere.desc.previous_transform = (
+        np.asarray(sphere.desc.transform, np.float32)
+        @ math3d.translation(-0.4, 0.0, 0.0))
+    sphere.set_description(sphere.desc)
 
 
 def _visualization(dev, scene, view):
@@ -152,7 +161,7 @@ def _pipelined(dev, scene, view):
 
 
 @pytest.mark.parametrize("enable", [
-    _upscaler, _resolution_scale, _motion_blur, _pipelined,
+    _pipelined,
 ], ids=lambda f: f.__name__.strip("_"))
 def test_out_of_slice_features_raise(enable):
     dev, scene, view = _scene()
@@ -176,13 +185,14 @@ def _gi_denoiser(dev, scene, view):
 
 @pytest.mark.parametrize("enable", [
     _gi, _denoiser, _gi_denoiser, _reflections, _refraction, _mip_lod,
-    _visualization, _raster_hud, _raster_background,
+    _visualization, _raster_hud, _raster_background, _upscaler,
+    _resolution_scale, _motion_blur,
 ], ids=lambda f: f.__name__.strip("_"))
 def test_in_slice_features_render(enable):
     """GI, the GI denoiser, reflections, refraction, mip LOD, the debug
-    views and the raster foreground and background render: two frames,
-    the second over the first one's history. All but the denoiser alone
-    change the frame."""
+    views, the raster foreground and background, the upscaler, resolution
+    scaling and motion blur render: two frames, the second over the first
+    one's history. All but the denoiser alone change the frame."""
     dev, scene, view = _scene()
     dev.draw()
     plain = view.framebuffer().copy()

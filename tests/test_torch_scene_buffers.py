@@ -77,6 +77,11 @@ def test_global_params_equal(name):
         assert getattr(jcfg, f) == getattr(pcfg, f), f
     jgp, pgp = jr._global_params(jcfg), pr._global_params(pcfg)
     for f in pfg.GlobalParams._fields:
-        np.testing.assert_array_equal(
-            np.asarray(getattr(jgp, f)), getattr(pgp, f).numpy(), err_msg=f
-        )
+        j, p = getattr(jgp, f), getattr(pgp, f)
+        if f == "temporal_reset" and j is None:
+            # The JAX view sets it only while a temporal upscaler runs;
+            # the port's view always does (no upscaler here: False).
+            j = np.bool_(False)
+        # pixel_jitter stays on the host in the port: its f32 values.
+        p = np.asarray(p, np.float32) if isinstance(p, tuple) else p.numpy()
+        np.testing.assert_array_equal(np.asarray(j), p, err_msg=f)
