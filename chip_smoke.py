@@ -85,6 +85,38 @@ result line):
      each with FSR auto, XeSS auto and DLSS performance, and one FSR draw
      with RCAS and motion blur over a moving sphere, card against CPU at
      SSIM >= 0.99 per frame; the learned residual card vs CPU;
+ 15. streamed: bench.py's measure_streamed loop on bench config 4 as
+     written (instance 1 turned by 0.03 f radians, the camera pushed,
+     Device.draw()): settling draws, then 10 frames full sync and 10
+     pipelined (the present ring of depth 2, after 2 priming draws), the
+     launch counts set to 0 just before each and read just after; per
+     mode the draw ms median and range, device ms, launches and idle
+     share of 3 profiled frames, peak memory, and the host-synchronising
+     calls of 5 frames (torch's sync-debug mode); gates: every pipelined
+     present is byte for byte the frame drawn two draws before, the ring
+     saves at least 2 syncs a frame, holds at most its depth after a
+     draw, and presents are not black;
+ 16. midframe: interpolated_midframe of the sample scene 160x120 with FSR
+     auto (render 128x96), card against CPU at SSIM >= 0.99; on bench
+     config 3 as written its ms (CUDA events), and a yaw between two
+     draws that moves the picture s px moves the midframe s/2 +- 1 px
+     (the flow scaled from render to display pixels);
+ 17. banded: castle GI 1280x720 (denoiser off, then on) drawn 3 frames
+     whole and in 2 bands (360 rows, tiled) and 4 (180 rows, untiled)
+     from zeros: mean abs < 1e-6, max abs < 1e-4 (with the denoiser, away
+     from the rows within gi_filter_passes of a band edge, whose max is
+     printed), instance planes equal, no alpha hits dropped; ms and peak
+     per band; then bench config 5's fidelity as bench.py's measure_ssim
+     computes it: the DLSS performance frame after 8 draws against the
+     native 3840x2160 frame drawn in 4 bands of 540 rows (6 if 4 do not
+     fit, and the failed allocation is printed), 8 frames with the
+     history concatenated across the bands; SSIM, peaks, band ms;
+ 18. inspector: castle 640x480 with one light just ahead of the camera
+     and one far behind the castle: after "gizmos on" the rings are
+     drawn, pixels in the open take the ring's colour and occluded ones
+     on even checkerboard squares stay; "dump" writes a PNG that reads
+     back as the framebuffer; an edit and "camera rotate" change the next
+     draw;
 then the kernel table line and the result line.
 
 It imports torch, numpy and rt64tpu_torch only.
@@ -395,7 +427,7 @@ def occlusion_phase(tag, call, wrapper, twin, flops_by_stage):
     ms_batched = batched_ms(lambda: wrapper(*args, **kw))
     work = counted_work(stats, flops_by_stage)
     work.update(work_item_fields(tag, wrapper, args, kw, shadow=True),
-                prev_ms=PREV_MS[tag], prev_bound_ms=PREV_BOUND_MS[tag])
+                prev_ms=PREV_MS.get(tag), prev_bound_ms=PREV_BOUND_MS.get(tag))
     n_bytes = sum(a.numel() * a.element_size() for a in args)
     n_bytes += 4 * n
     bms, by = bound_ms(n_bytes, work["flops"])
@@ -476,7 +508,7 @@ def phase_reflections(plain_fb):
     dev.draw()  # settles the alpha boost ladder, fills the history
     seen = capture_launches(dev.draw)
     fb = view.framebuffer().copy()
-    out, cfg = view._renderer._pick_src
+    out, cfg = view._renderer._last, view._renderer._last_cfg
     check(cfg.max_reflections == REFL_BOUNCES,
           f"the castle frame ran {cfg.max_reflections} reflection bounces")
     moat = fg.to_image(cfg, out.gbuffers.refl_alpha > 0).cpu().numpy()
@@ -1002,7 +1034,7 @@ def phase_raster():
 
     frame_ms, counts, peak = draw_frames(dev, RASTER_FRAMES)
     row = frame_row("raster", view, RASTER_FRAMES, frame_ms, counts, peak)
-    out, cfg = r._pick_src
+    out, cfg = r._last, r._last_cfg
     sb = r._sb
     ones = torch.ones((1, GI_H, GI_W), device="cuda")
     base = torch.cat([r._background_planes(cfg), ones], 0)
@@ -1056,7 +1088,7 @@ def phase_debug_views(dev, view):
     from rt64tpu_torch import descriptors as d
     from rt64tpu_torch.pipeline import framegraph as fg
 
-    out, cfg = view._renderer._pick_src
+    out, cfg = view._renderer._last, view._renderer._last_cfg
     extra = (out.direct_accum, out.indirect_accum, out.filtered_direct,
              out.filtered_indirect, out.reflection, out.refraction)
     cpu = lambda t: t.cpu()
@@ -1074,7 +1106,7 @@ def phase_debug_views(dev, view):
     view.visualization_mode = d.VISUALIZATION_MODE_DEPTH
     dev.draw()
     view.visualization_mode = 0
-    out, cfg = view._renderer._pick_src
+    out, cfg = view._renderer._last, view._renderer._last_cfg
     fb = view.framebuffer()[..., :3].astype(np.int16)
     plain = fg.present_rgb8(fg.debug_visualization(
         d.VISUALIZATION_MODE_DEPTH, cfg, out.gbuffers, out.direct_accum,
@@ -1200,13 +1232,13 @@ def phase_upscaled():
         r = view._renderer
         r._temporal = None
         dev.draw()
-        out, cfg = r._pick_src
+        out, cfg = r._last, r._last_cfg
         want = filters.bilinear_resize(out.rt_output, h, w)
         reset_err = float((out.image - want).abs().max())
         with RecordJitter() as jit:
             frame_ms, counts, peak = draw_frames(dev, frames)
         row = frame_row(f"upscaled_bench{n}", view, frames, frame_ms, counts, peak)
-        out, cfg = r._pick_src
+        out, cfg = r._last, r._last_cfg
         all_launches, device_ms = profiled(dev.draw)
         row.update(
             config=n, display=(w, h), render=(cfg.rt_width, cfg.rt_height),
@@ -1306,6 +1338,619 @@ def phase_upscalers_small():
     emit(row)
     check(row["fsr"]["render"] == (128, 96), f"FSR auto renders {row['fsr']['render']}")
     return row
+
+
+# Phase streamed: bench.py's measure_streamed on bench config 4 as written
+# (castle 1280x720, di 1, gi 1, two reflection bounces, FSR auto, the
+# denoiser at its default): STREAM_FRAMES settling draws (bench.py's warm
+# loop), then blocks of STREAM_FRAMES timed frames in the order
+# STREAM_ORDER, each pushing bench.py's angle cycle f = 0..STREAM_FRAMES-1;
+# then per mode STREAM_WINDOW frames with the sync-debug mode on and one
+# frame under the profiler.
+STREAM_FRAMES = 10
+STREAM_ORDER = ("full_sync", "pipelined", "pipelined", "full_sync")
+STREAM_WINDOW = 5
+# Frames of the profiled block of each mode, whose device time over its
+# wall time (first draw to the last synchronize) gives the idle share.
+STREAM_PROFILED = 4
+# The ring must save at least this many host syncs a frame.
+STREAM_SYNCS_SAVED_MIN = 2
+
+
+class StreamedScene:
+    """bench config 4 and bench.py's push(f): instance 1 turns by 0.03 f
+    radians about y (with its previous transform), the camera is pushed
+    again, then Device.draw()."""
+
+    def __init__(self):
+        import numpy as np
+        from rt64tpu_torch import descriptors as d
+        from rt64tpu_torch.utils.castle_scene import build_castle_scene
+
+        w, h = BENCH_UPSCALED[4][0]
+        self.dev, self.scene, self.view = build_castle_scene(
+            w, h, di_samples=1, gi_samples=1)
+        self.view.max_reflections = REFL_BOUNCES
+        self.view.desc.upscaler = d.UPSCALER_FSR
+        self.view.desc.upscaler_mode = d.UPSCALER_MODE_AUTO
+        self.inst = self.scene.instances[min(1, len(self.scene.instances) - 1)]
+        tf = self.inst.desc.transform
+        self.base_tf = (np.eye(4, dtype=np.float32) if tf is None
+                        else np.asarray(tf, np.float32).reshape(4, 4))
+
+    def push(self, f):
+        from rt64tpu_torch.ops import math3d
+
+        de, view = self.inst.desc, self.view
+        de.previous_transform = de.transform
+        de.transform = math3d.rotation_y(0.03 * f) @ self.base_tf
+        self.inst.set_description(de)
+        view.set_perspective(view.view_matrix, view.fov_radians,
+                             view.near_dist, view.far_dist, True)
+        self.dev.draw()
+
+
+def count_syncs(fn):
+    """(fn(), {"file:line": count} of the synchronizing CUDA calls it
+    made), as torch's sync-debug mode reports them."""
+    import collections
+    import os
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    sites = collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+    return out, dict(sites)
+
+
+def phase_streamed():
+    """Returns ({mode: row} for "full_sync" and "pipelined", the K1 and K2
+    rows of one full-sync frame's largest launches)."""
+    import collections
+
+    import numpy as np
+    import torch
+    from rt64tpu_torch.ops import tracer_cuda as tc
+    from rt64tpu_torch.pipeline import framegraph as fg
+
+    st = StreamedScene()
+    for f in range(STREAM_FRAMES):
+        st.push(f)
+    r = st.view._renderer
+    rows = {m: dict(phase=f"streamed_{m}", config=4, frames=0, draw_ms=[],
+                    block_medians=[], loop_ms_per_frame=[], peak=0,
+                    counts=collections.Counter(), ring=[])
+            for m in STREAM_ORDER}
+    for mode in STREAM_ORDER:
+        row = rows[mode]
+        pipelined = mode == "pipelined"
+        if pipelined and not r.pipelined:
+            r.pipelined = True
+            for f in range(r.pipeline_depth):  # prime the ring
+                st.push(f)
+        r.pipelined = pipelined
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        tc.launch_counts.reset()
+        draw_ms = []
+        t_loop = time.perf_counter()
+        for f in range(STREAM_FRAMES):
+            t0 = time.perf_counter()
+            st.push(f)
+            draw_ms.append((time.perf_counter() - t0) * 1e3)
+            row["ring"].append(len(r._pending))
+        torch.cuda.synchronize()
+        row["loop_ms_per_frame"].append(
+            (time.perf_counter() - t_loop) * 1e3 / STREAM_FRAMES)
+        row["counts"].update(vars(tc.launch_counts))
+        row["peak"] = max(row["peak"], torch.cuda.max_memory_allocated())
+        row["draw_ms"] += draw_ms
+        row["block_medians"].append(statistics.median(draw_ms))
+        row["frames"] += STREAM_FRAMES
+
+    out = {}
+    for mode in ("full_sync", "pipelined"):
+        row = rows[mode]
+        r.pipelined = mode == "pipelined"
+        if r.pipelined:
+            for f in range(r.pipeline_depth):
+                st.push(f)
+        # The sync window: each draw's own RGB8 image kept on the card
+        # (device ops only), the framebuffers on the host.
+        drawn, presented, syncs, sites = [], [], [], collections.Counter()
+        for f in range(STREAM_WINDOW):
+            _, found = count_syncs(lambda: st.push(f))
+            syncs.append(sum(found.values()))
+            sites.update(found)
+            drawn.append(fg.present_rgb8(r._last.image))
+            presented.append(st.view.framebuffer()[..., :3].copy())
+            row["ring"].append(len(r._pending))
+        lag = r.pipeline_depth if r.pipelined else 0
+        present_equal = [
+            bool(np.array_equal(presented[i], drawn[i - lag].cpu().numpy()))
+            for i in range(lag, STREAM_WINDOW)]
+
+        def block():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for f in range(STREAM_PROFILED):
+                st.push(f)
+            torch.cuda.synchronize()
+            return (time.perf_counter() - t0) * 1e3
+
+        box = []
+        n_launch, device_ms = profiled(lambda: box.append(block()))
+        counts = dict(row.pop("counts"))
+        ring = row.pop("ring")
+        draw_ms = row["draw_ms"]
+        row.update(
+            pipeline_depth=r.pipeline_depth if r.pipelined else 0,
+            draw_ms_median=statistics.median(draw_ms), draw_ms_min=min(draw_ms),
+            draw_ms_max=max(draw_ms),
+            profiled_frames=STREAM_PROFILED,
+            device_ms_per_frame=device_ms / STREAM_PROFILED,
+            launches_per_frame_all=n_launch / STREAM_PROFILED,
+            profiled_ms_per_frame=box[0] / STREAM_PROFILED,
+            idle_share=1.0 - device_ms / box[0],
+            max_memory_allocated=row.pop("peak"), **counts,
+            launches_per_frame={k: v / row["frames"] for k, v in counts.items()},
+            syncs_per_frame=statistics.mean(syncs), syncs=syncs,
+            sync_sites=dict(sites.most_common()),
+            ring_max=max(ring), present_equal=present_equal,
+            present_max=int(st.view.framebuffer()[..., :3].max()),
+            alpha_boost=r.alpha_boost)
+        emit(row)
+        out[mode] = row
+        check(all(present_equal),
+              f"{mode}: a present is not the frame drawn {lag} draws before")
+        check(row["ring_max"] <= r.pipeline_depth,
+              f"{mode}: the ring held {row['ring_max']} frames after a draw")
+        check(row["present_max"] > 0, f"{mode}: the present is black")
+        check(counts["opaque_launches"] >= row["frames"]
+              and counts["shadow_launches"] >= row["frames"],
+              f"{mode}: K1/K2 launched {counts} in {row['frames']} frames")
+    saved = out["full_sync"]["syncs_per_frame"] - out["pipelined"]["syncs_per_frame"]
+    check(saved >= STREAM_SYNCS_SAVED_MIN,
+          f"the ring saves {saved} host syncs a frame, under "
+          f"{STREAM_SYNCS_SAVED_MIN}")
+    r.pipelined = False
+    seen = capture_launches(lambda: st.push(0))
+    del st, r
+    torch.cuda.empty_cache()
+    return out, kernels_on_largest("streamed", seen)
+
+
+def kernels_on_largest(tag, seen):
+    """K1 and K2 held against their plain twins on a recorded draw's
+    largest launches (its primary rays and its direct-light shadow
+    rays): {"k1": row, "k2": row}."""
+    check(seen["trace_opaque_blocks"] and seen["trace_shadow_blocks"],
+          f"{tag}: the draw launched no K1 or K2")
+    return dict(k1=phase_k1(f"k1_{tag}", largest(seen["trace_opaque_blocks"])),
+                k2=phase_k2(f"k2_{tag}", largest(seen["trace_shadow_blocks"])))
+
+
+def edge_shift(a, b, reach=60):
+    """Integer column shift s minimising mean |a[:, x + s] - b[:, x]| over
+    the middle columns of two grey images."""
+    import numpy as np
+
+    h, w = a.shape
+    reach = min(reach, w // 4)
+    half = min(200, w // 2 - reach)
+    x0, x1 = w // 2 - half, w // 2 + half
+    cost = [np.abs(a[:, x0 + s : x1 + s] - b[:, x0:x1]).mean()
+            for s in range(-reach, reach + 1)]
+    return int(np.argmin(cost)) - reach
+
+
+# Phase midframe: a yaw between two draws of bench config 3 that moves the
+# picture by about MIDFRAME_SHIFT_PX display pixels; the midframe must sit
+# half way, within MIDFRAME_SHIFT_TOL.
+MIDFRAME_YAW = 0.03
+MIDFRAME_SHIFT_TOL = 1
+
+
+def phase_midframe():
+    import numpy as np
+    import torch
+    from rt64tpu_torch import descriptors as d
+    from rt64tpu_torch.utils.castle_scene import build_castle_scene
+    from rt64tpu_torch.utils.ssim import ssim
+    from rt64tpu_torch.utils.testscenes import build_sample_scene
+
+    mids = {}
+    for where in ("cuda", "cpu"):
+        dev, _, view = build_sample_scene(160, 120, upscaler=d.UPSCALER_FSR,
+                                          device=where)
+        dev.draw()
+        dev.draw()
+        mids[where] = view._renderer.interpolated_midframe()
+        render = (view._renderer._last_cfg.rt_width,
+                  view._renderer._last_cfg.rt_height)
+    s_small = ssim(mids["cuda"], mids["cpu"])
+
+    (w, h), gi, refl, _ = BENCH_UPSCALED[3]
+    dev, _, view = build_castle_scene(w, h, di_samples=1, gi_samples=gi)
+    view.max_reflections = refl
+    view.desc.upscaler = d.UPSCALER_FSR
+    view.desc.upscaler_mode = d.UPSCALER_MODE_AUTO
+    dev.draw()  # settles the boost ladder
+    dev.draw()
+    r = view._renderer
+    prev = view.framebuffer()[..., :3].astype(np.float64).mean(-1)
+    view.rotate_perspective(MIDFRAME_YAW, 0.0)
+    dev.draw()
+    cur = view.framebuffer()[..., :3].astype(np.float64).mean(-1)
+    mid, mid_ms = timed(r.interpolated_midframe)
+    mid_grey = mid.astype(np.float64).mean(-1)
+    shift_cur, shift_mid = edge_shift(prev, cur), edge_shift(prev, mid_grey)
+    cfg = r._last_cfg
+    row = dict(phase="midframe", small=dict(width=160, height=120,
+                                            render=render, ssim=s_small),
+               config=3, display=(w, h), render=(cfg.rt_width, cfg.rt_height),
+               midframe_ms=mid_ms, yaw=MIDFRAME_YAW, shift_cur_px=shift_cur,
+               shift_mid_px=shift_mid, shape=tuple(mid.shape))
+    emit(row)
+    check(s_small >= 0.99, f"midframe SSIM card vs CPU {s_small} < 0.99")
+    check(mid.shape == (h, w, 3) and mid.dtype == np.uint8,
+          f"midframe {mid.shape} {mid.dtype}")
+    check(abs(shift_cur) >= 8, f"the yaw moved the picture {shift_cur} px")
+    check(abs(shift_mid - shift_cur / 2) <= MIDFRAME_SHIFT_TOL,
+          f"midframe shift {shift_mid} px, the frames' {shift_cur} px")
+    del dev, view, r
+    torch.cuda.empty_cache()
+    return row
+
+
+# Phase banded: castle GI 1280x720 drawn whole and in 2 bands (360 rows,
+# tiled) and 4 (180 rows, untiled), BAND_FRAMES frames each from zeros;
+# the bounds of the JAX package's tests/test_parallel.py.
+BAND_FRAMES = 3
+BAND_COUNTS = (2, 4)
+BAND_MEAN_TOL = 1e-6
+BAND_MAX_TOL = 1e-4
+# Bench config 5's native reference, as bench.py's measure_ssim draws it,
+# with 4 frames a side where bench.py has 8 (the run's time limit).
+BENCH5_W, BENCH5_H = 3840, 2160
+NATIVE_BANDS = 4
+NATIVE_BANDS_IF_OOM = 6
+NATIVE_FRAMES = 4
+
+
+def render_timed(fn):
+    """(fn(), device ms between CUDA events, peak bytes during it)."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out, ms = timed(fn)
+    return out, ms, torch.cuda.max_memory_allocated()
+
+
+def banded_frame(render, *args, capture_band=None):
+    """render(*args) for a tiling.sharded_render fn, with each band's
+    render_frame call timed (CUDA events) and its peak memory read:
+    (FrameOutputs of the whole frame, band ms, band peaks, the K1 and K2
+    launches recorded in band `capture_band`, each kind's largest only,
+    or {})."""
+    from rt64tpu_torch.pipeline import framegraph as fg
+
+    original = fg.render_frame
+    ms, peaks, seen = [], [], {}
+
+    def band(*a, **kw):
+        def draw():
+            if len(ms) != capture_band:
+                return original(*a, **kw)
+            box = []
+            calls = capture_launches(lambda: box.append(original(*a, **kw)))
+            seen.update({k: [largest(calls[k])] if calls[k] else []
+                         for k in ("trace_opaque_blocks",
+                                   "trace_shadow_blocks")})
+            return box[0]
+
+        out, t, peak = render_timed(draw)
+        ms.append(t)
+        peaks.append(peak)
+        return out
+
+    fg.render_frame = band
+    try:
+        out = render(*args)
+    finally:
+        fg.render_frame = original
+    return out, ms, peaks, seen
+
+
+def phase_banded_castle():
+    import torch
+    from rt64tpu_torch.ops import tracer_cuda as tc
+    from rt64tpu_torch.parallel import tiling
+    from rt64tpu_torch.pipeline import framegraph as fg
+    from rt64tpu_torch.utils.castle_scene import build_castle_scene
+
+    rows, counts_all = {}, {}
+    for denoiser in (False, True):
+        dev, _, view = build_castle_scene(GI_W, GI_H, di_samples=1,
+                                          gi_samples=1, denoiser=denoiser)
+        view.max_reflections = 0
+        dev.draw()  # settles the boost ladder
+        r = view._renderer
+        cfg = r._last_cfg
+        gp0 = r._global_params(cfg)
+        bg = r._background_planes(cfg)
+        row = dict(phase=f"banded_castle_gi{'_denoiser' if denoiser else ''}",
+                   width=GI_W, height=GI_H, frames=BAND_FRAMES,
+                   alpha_boost=r.alpha_boost, tiled_whole=cfg.tiled)
+        whole, hist = [], fg.History.zeros(GI_H, GI_W, "cuda")
+        for f in range(BAND_FRAMES):
+            gp = gp0._replace(frame_count=torch.tensor(f, device="cuda"))
+            out, ms, peak = render_timed(lambda: fg.render_frame(
+                r._sb, gp, hist, r.bn_table, cfg, bg_planes=bg))
+            hist = out.history
+            whole.append((out.image, fg.to_image(cfg, out.gbuffers.instance),
+                          int(out.alpha_dropped)))
+            del out
+        row.update(whole_ms=ms, whole_peak=peak)
+        for n in BAND_COUNTS:
+            band = tiling.shard_config(cfg, n)
+            render = tiling.sharded_render(cfg, n)
+            edge = torch.zeros(GI_H, dtype=torch.bool, device="cuda")
+            if denoiser:
+                for b in range(1, n):
+                    lo = b * band.rt_height
+                    edge[lo - cfg.gi_filter_passes : lo + cfg.gi_filter_passes] = True
+            hist = fg.History.zeros(GI_H, GI_W, "cuda")
+            tc.launch_counts.reset()
+            per_frame = []
+            for f in range(BAND_FRAMES):
+                gp = gp0._replace(frame_count=torch.tensor(f, device="cuda"))
+                out, band_ms, band_peak, _ = banded_frame(
+                    render, r._sb, gp, hist, r.bn_table, bg)
+                hist = out.history
+                inst = tiling.to_image_banded(cfg, n, out.gbuffers.instance)
+                w_img, w_inst, w_drop = whole[f]
+                diff = (out.image - w_img).abs()
+                keep = diff[:, ~edge]
+                per_frame.append(dict(
+                    mean_abs=float(keep.mean()), max_abs=float(keep.max()),
+                    edge_max_abs=float(diff[:, edge].max()) if denoiser else None,
+                    instance_equal=bool(torch.equal(inst, w_inst)),
+                    dropped_whole=w_drop, dropped_bands=int(out.alpha_dropped),
+                    band_ms=band_ms, band_peak=band_peak))
+                del out, inst, diff, keep
+            counts = dict(vars(tc.launch_counts))
+            counts_all[(denoiser, n)] = counts
+            row[f"bands{n}"] = dict(rows=band.rt_height, tiled=band.tiled,
+                                    frames=per_frame, **counts)
+            for k, fr in enumerate(per_frame):
+                what = f"{row['phase']} {n} bands frame {k}"
+                check(fr["mean_abs"] < BAND_MEAN_TOL and fr["max_abs"] < BAND_MAX_TOL,
+                      f"{what}: mean {fr['mean_abs']} max {fr['max_abs']} "
+                      "from the whole frame")
+                check(fr["instance_equal"], f"{what}: instance planes differ")
+                check(fr["dropped_whole"] == 0 and fr["dropped_bands"] == 0,
+                      f"{what}: alpha hits dropped")
+            check(counts["opaque_launches"] >= n * BAND_FRAMES
+                  and counts["shadow_launches"] >= n * BAND_FRAMES,
+                  f"{row['phase']} {n} bands: K1/K2 launched {counts}")
+        emit(row)
+        rows[denoiser] = row
+        del dev, view, r, whole, hist
+        torch.cuda.empty_cache()
+    return rows, counts_all
+
+
+def phase_bench5_fidelity():
+    """bench.py measure_ssim on bench config 5: the DLSS performance frame
+    after NATIVE_FRAMES draws against the native 3840x2160 frame drawn
+    through sharded_render in bands of 3840x540, NATIVE_FRAMES frames
+    with the history concatenated across the bands, SSIM of the uint8
+    images. The K1 and K2 launches of the first frame's first band are
+    then held against their plain twins: (row, {"k1": row, "k2": row})."""
+    import torch
+    from rt64tpu_torch import descriptors as d
+    from rt64tpu_torch.parallel import tiling
+    from rt64tpu_torch.pipeline import framegraph as fg
+    from rt64tpu_torch.utils.castle_scene import build_castle_scene
+    from rt64tpu_torch.utils.ssim import ssim
+
+    w, h = BENCH5_W, BENCH5_H
+
+    def build(upscaler, mode):
+        dev, _, view = build_castle_scene(w, h, di_samples=1, gi_samples=1)
+        view.max_reflections = REFL_BOUNCES
+        view.desc.upscaler, view.desc.upscaler_mode = upscaler, mode
+        view.update()
+        return dev, view
+
+    dev, view = build(d.UPSCALER_DLSS, d.UPSCALER_MODE_PERFORMANCE)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for _ in range(NATIVE_FRAMES):
+        dev.draw()
+    dlss_s = time.perf_counter() - t0
+    dlss_peak = torch.cuda.max_memory_allocated()
+    prod = view.framebuffer()[..., :3].copy()
+    cfg = view._renderer._last_cfg
+    dlss_render = (cfg.rt_width, cfg.rt_height)
+    del dev, view, cfg
+    torch.cuda.empty_cache()
+
+    dev, view = build(d.UPSCALER_OFF, d.UPSCALER_MODE_AUTO)
+    r = view._renderer
+    cfg = r._config()
+    bg = r._background_planes(cfg)
+    gp0 = r._global_params(cfg)
+    failed = None
+
+    def native(bands):
+        render = tiling.sharded_render(cfg, bands)
+        hist = fg.History.zeros(h, w, "cuda")
+        ms, peaks, drops = [], [], []
+        for f in range(NATIVE_FRAMES):
+            gp = gp0._replace(frame_count=torch.tensor(f, device="cuda"))
+            out, t, p, found = banded_frame(
+                render, r._sb, gp, hist, r.bn_table, bg,
+                capture_band=0 if f == 0 else None)
+            if f == 0:
+                seen = found
+            hist = out.history
+            drops.append(int(out.alpha_dropped))
+            image = fg.present_rgb8(out.image)
+            ms += t
+            peaks += p
+            del out
+        return image.cpu().numpy(), ms, peaks, drops, seen
+
+    try:
+        bands = NATIVE_BANDS
+        native_img, ms, peaks, drops, seen = native(bands)
+    except torch.cuda.OutOfMemoryError as exc:
+        failed = str(exc).splitlines()[0]
+        torch.cuda.empty_cache()
+        bands = NATIVE_BANDS_IF_OOM
+        native_img, ms, peaks, drops, seen = native(bands)
+    s = ssim(prod, native_img)
+    row = dict(phase="bench5_fidelity", config=5, display=(w, h),
+               dlss_render=dlss_render, frames=NATIVE_FRAMES, ssim=s,
+               native_bands=bands, native_band_rows=h // bands,
+               native_oom_with_4_bands=failed,
+               dlss_seconds_per_frame=dlss_s / NATIVE_FRAMES,
+               dlss_peak=dlss_peak, band_ms_median=statistics.median(ms),
+               band_ms=ms, band_peak_max=max(peaks),
+               native_alpha_dropped=drops, alpha_boost=r.alpha_boost,
+               prod_max=int(prod.max()), native_max=int(native_img.max()))
+    emit(row)
+    check(prod.shape == native_img.shape == (h, w, 3),
+          f"bench5 frames {prod.shape} {native_img.shape}")
+    check(row["prod_max"] > 0 and row["native_max"] > 0,
+          "a bench5 fidelity frame is black")
+    del dev, view, r
+    torch.cuda.empty_cache()
+    return row, kernels_on_largest("native_band", seen)
+
+
+def gizmo_ring(view, light, w, h):
+    """(ys, xs) of a light's gizmo ring on a w x h framebuffer and its
+    distance from the eye, as api.Inspector draws it, or None off
+    screen."""
+    import numpy as np
+    from rt64tpu_torch.ops import math3d
+
+    proj = math3d.perspective_fov_rh(view.fov_radians, w / h, view.near_dist,
+                                     view.far_dist)
+    clip = math3d.transform_points_h(np.asarray(light.position, np.float32),
+                                     view.view_matrix @ proj)
+    if clip[3] <= 0:
+        return None
+    sx = int((0.5 + 0.5 * clip[0] / clip[3]) * w)
+    sy = int((0.5 - 0.5 * clip[1] / clip[3]) * h)
+    if not (0 <= sx < w and 0 <= sy < h):
+        return None
+    yy, xx = np.mgrid[-5:6, -5:6]
+    ring = np.abs(np.hypot(xx, yy) - 5) < 1.0
+    eye = np.linalg.inv(view.view_matrix.astype(np.float64))[3, :3]
+    return (np.clip(sy + yy[ring], 0, h - 1), np.clip(sx + xx[ring], 0, w - 1),
+            float(np.linalg.norm(np.asarray(light.position, np.float64) - eye)))
+
+
+def phase_inspector():
+    """The Inspector over castle 640x480 on the card: light gizmos (one
+    light just in front of the camera, one far behind the castle), a PNG
+    dump, live edits. The framebuffer before the gizmo pass is taken by
+    wrapping Inspector.render."""
+    import os
+
+    import numpy as np
+    import rt64tpu_torch
+    from rt64tpu_torch.pipeline import framegraph as fg
+    from rt64tpu_torch.utils.assets import read_image
+    from rt64tpu_torch.utils.castle_scene import build_castle_scene
+
+    w, h = CASTLE_W, CASTLE_H
+    dev, scene, view = build_castle_scene(w, h, di_samples=1, gi_samples=0)
+    view.max_reflections = 0
+    dev.draw()
+    insp = rt64tpu_torch.Inspector(dev)
+    eye, fwd = view.get_view_position(), view.get_view_direction()
+    offsets = (2.0, 5000.0)
+    for light, dist in zip(scene.lights, offsets):
+        light.position = tuple(float(v) for v in eye + fwd * dist + 0.2)
+    before = []
+    render = insp.render
+
+    def hooked():
+        before.append(view.framebuffer()[..., :3].copy())
+        render()
+
+    insp.render = hooked
+    dump = os.path.join("build", "inspector_dump")
+    replies = [insp.command("gizmos on"), insp.command(f"dump {dump}")]
+    dev.draw()
+    pre, after = before[-1], view.framebuffer()[..., :3].copy()
+    png = read_image(os.path.join(dump, "frame_00000.png"))
+    pick, cfg = view._renderer._pick_src
+    pos = fg.to_image(cfg, pick.position).cpu().numpy().transpose(1, 2, 0)
+    inst = fg.to_image(cfg, pick.instance).cpu().numpy()
+    eye64 = np.linalg.inv(view.view_matrix.astype(np.float64))[3, :3]
+    hit = np.where(inst >= 0, np.linalg.norm(pos - eye64, axis=-1), np.inf)
+    rings = dict(on_screen=0, pixels=0, occluded=0, occluded_even_unchanged=True,
+                 open_pixels_coloured=True)
+    for light in scene.lights[: len(offsets)]:
+        ring = gizmo_ring(view, light, w, h)
+        if ring is None:
+            continue
+        ys, xs, dist = ring
+        colour = np.clip(np.asarray(light.diffuse_color) * 255 + 64, 0,
+                         255).astype(np.uint8)
+        occ = hit[ys * cfg.rt_height // h, xs * cfg.rt_width // w] < dist
+        even = (ys + xs) % 2 == 0
+        rings["on_screen"] += 1
+        rings["pixels"] += len(ys)
+        rings["occluded"] += int(occ.sum())
+        rings["occluded_even_unchanged"] &= bool(
+            (pre[ys, xs][occ & even] == after[ys, xs][occ & even]).all())
+        rings["open_pixels_coloured"] &= bool(
+            (after[ys, xs][~occ] == colour).all())
+    replies += [insp.command("dump off"), insp.command("gizmos off"),
+                insp.command("set view.upscaler_sharpness 0.5"),
+                insp.command("get view.upscaler_sharpness"),
+                insp.command("camera rotate 0.1 0")]
+    dev.draw()
+    row = dict(phase="inspector", width=w, height=h, replies=replies,
+               rings=rings,
+               changed_pixels=int((pre != after).any(-1).sum()),
+               dump_equal=bool(np.array_equal(png[..., :3], after)
+                               and (png[..., 3] == 255).all()),
+               next_draw_differs=bool((view.framebuffer()[..., :3] != after).any()))
+    emit(row)
+    check(rings["on_screen"] == 2 and rings["pixels"] > 0,
+          f"gizmo rings on screen: {rings}")
+    check(rings["occluded"] > 0 and rings["occluded"] < rings["pixels"],
+          f"the rings' occlusion does not vary: {rings}")
+    check(rings["occluded_even_unchanged"] and rings["open_pixels_coloured"],
+          f"the gizmo pass broke the occlusion dither: {rings}")
+    check(row["dump_equal"], "the dumped PNG is not the framebuffer")
+    check(replies == ["OK", "OK", "OK", "OK", "OK", "0.5", "OK"],
+          f"inspector replies {replies}")
+    check(row["next_draw_differs"], "the edits did not change the next draw")
+    return row
+
+
+def band_launches(counts, key):
+    return {f"{'denoiser_' if den else ''}bands{n}": c[key]
+            for (den, n), c in counts.items()}
 
 
 def run():
@@ -1418,6 +2063,17 @@ def run():
     upscaled = phase_upscaled()
     phase_upscalers_small()
 
+    # 15. bench.py's streamed loop on bench config 4, full sync and
+    # pipelined; 16. the midframe; 17. banded frames, and bench config
+    # 5's fidelity against its banded native reference; 18. the Inspector
+    streamed, k_streamed = phase_streamed()
+    phase_midframe()
+    _, banded_counts = phase_banded_castle()
+    _, k_native = phase_bench5_fidelity()
+    phase_inspector()
+    for tag, rows in (("streamed", k_streamed), ("native_band", k_native)):
+        k1[tag], k2[tag] = rows["k1"], rows["k2"]
+
     measured = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     # Every kernel also carries its bounce launch's numbers, as
     # bounce_<key>. Every number of this line but bound_ms was measured in
@@ -1427,8 +2083,13 @@ def run():
     # reflection_<key>, with the launches of the path that ran them: the
     # 10 castle-refl frames (K1), the recorded large-castle-refl draw (K3).
     # K1 and K2 also carry their launches in the 10 castle-raster frames,
-    # as raster_launches, and in the frames of each upscaled bench config,
-    # as upscaled_launches.
+    # as raster_launches, in the frames of each upscaled bench config, as
+    # upscaled_launches, in the timed frames of each mode of the streamed
+    # loop, as streamed_launches, and in each banded run of the castle GI
+    # frame (denoiser off and on, 2 and 4 bands), as banded_launches.
+    # K1 and K2 also carry the numbers of their largest launches in one
+    # streamed config-4 frame, as streamed_<key>, and in the first band
+    # of bench config 5's native reference, as native_band_<key>.
     kernel = lambda name, src, line, launches, row, refl_launches=None, **more: dict(
         name=name, route="cuda", source=f"rt64tpu_torch/csrc/{src}",
         replaces=f"rt64tpu/ops/tracer_pallas.py:{line}", launches=launches,
@@ -1437,18 +2098,26 @@ def run():
         **({} if refl_launches is None else dict(
             reflection_launches=refl_launches,
             **{f"reflection_{k}": row["reflection"][k] for k in measured})),
+        **{f"{tag}_{k}": row[tag][k] for tag in ("streamed", "native_band")
+           if tag in row for k in measured},
         **more)
     emit({"kernels": [
         kernel("trace_opaque_walk<WoopClusters> (K1)", "packet_tracer.cu",
                764, main["opaque_launches"], k1, refl["opaque_launches"],
                raster_launches=raster["opaque_launches"],
                upscaled_launches={f"bench{n}": row["opaque_launches"]
-                                  for n, row in upscaled.items()}),
+                                  for n, row in upscaled.items()},
+               streamed_launches={m: row["opaque_launches"]
+                                  for m, row in streamed.items()},
+               banded_launches=band_launches(banded_counts, "opaque_launches")),
         kernel("trace_shadow_walk<WoopClusters> (K2)", "packet_tracer.cu",
                981, main["shadow_launches"], k2,
                raster_launches=raster["shadow_launches"],
                upscaled_launches={f"bench{n}": row["shadow_launches"]
-                                  for n, row in upscaled.items()}),
+                                  for n, row in upscaled.items()},
+               streamed_launches={m: row["shadow_launches"]
+                                  for m, row in streamed.items()},
+               banded_launches=band_launches(banded_counts, "shadow_launches")),
         kernel("trace_opaque_walk<MtClusters> (K3)", "mt_tracer.cu", 572,
                large["opaque_mt_launches"], k3,
                k3["reflection"]["launches_per_frame"]),

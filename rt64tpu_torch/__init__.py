@@ -29,6 +29,7 @@ from rt64tpu_torch.api import (  # noqa: F401
     Texture,
     Shader,
     Instance,
+    Inspector,
 )
 
 __version__ = "0.1.0"

@@ -1,8 +1,8 @@
 """Host-side object model mirroring the RT64 C ABI.
 
 One class per opaque handle of the reference ABI (public/rt64.h:88-96):
-Device, Scene, View, Mesh, Texture, Shader, Instance. Methods map onto
-the exported C symbols; the reference analog is cited inline.
+Device, Scene, View, Mesh, Texture, Shader, Instance, Inspector. Methods
+map onto the exported C symbols; the reference analog is cited inline.
 
 The device is headless: a frame renders into a retained numpy RGBA
 buffer (`View.framebuffer()`); presentation is the host's business.
@@ -52,6 +52,7 @@ class Device:
         self.meshes: List[Mesh] = []
         self.textures: List[Texture] = []
         self.shaders: List[Shader] = []
+        self.inspector: Optional[Inspector] = None
         self.frame_count = 0
         self.last_frame_time_ms = 0.0
         self._lock = threading.Lock()
@@ -78,6 +79,8 @@ class Device:
                 scene.update()
             for scene in self.scenes:
                 scene.render(delta_time_ms)
+            if self.inspector is not None:
+                self.inspector.render()
             self.frame_count += 1
         self.last_frame_time_ms = (time.perf_counter() - t0) * 1e3
 
@@ -336,7 +339,7 @@ class View:
         self.sky_plane_texture: Optional[Texture] = None
         self.frame_count = 0
         self.max_reflections = 2  # rt64_view.cpp:60
-        self.pipelined_present = False  # True: present frame N-1
+        self.pipelined_present = False  # True: present frame N-2 (the ring)
         self.visualization_mode = d.VISUALIZATION_MODE_FINAL
         self._renderer = None
         self._framebuffer: Optional[np.ndarray] = None
@@ -457,6 +460,397 @@ class View:
             d.UPSCALER_OFF, d.UPSCALER_AUTO, d.UPSCALER_DLSS, d.UPSCALER_FSR,
             d.UPSCALER_XESS,
         )
+
+
+class Inspector:
+    """RT64_CreateInspector / PrintMessageInspector / Set*Inspector
+    (rt64_inspector.cpp:469-515).
+
+    Headless observability surface: live parameter handles, the print
+    console, and frame dumping. The ImGui/Im3d panels become dict-based
+    parameter access plus the 17 visualization modes already wired
+    through ViewDesc / View.visualization_mode. Device.draw calls
+    render() after the scenes have drawn.
+    """
+
+    def __init__(self, device: Device):
+        self.device = device
+        self.messages: List[str] = []
+        self.scene_desc_ref: Optional[d.SceneDesc] = None
+        self.material_ref: Optional[d.Material] = None
+        self.material_name = ""
+        self.lights_ref = None
+        self.dump_path: Optional[str] = None
+        self.show_light_gizmos = False  # Im3d light spheres analog
+        self._dump_index = 0
+        self._gizmo_drag = None  # active light-gizmo drag state
+        device.inspector = self
+
+    def set_scene(self, scene_desc: d.SceneDesc):
+        self.scene_desc_ref = scene_desc
+
+    def set_material(self, material: d.Material, name: str):
+        self.material_ref = material
+        self.material_name = name
+
+    def set_lights(self, lights, light_count: int, max_light_count: int):
+        self.lights_ref = (lights, light_count, max_light_count)
+
+    def print_clear(self):
+        self.messages.clear()
+
+    def print_message(self, message: str):
+        self.messages.append(message)
+
+    # -- live parameter editing (the ImGui-panel analog) --------------------
+    #
+    # The reference's inspector panels mutate the registered view/scene/
+    # material/light state in place (rt64_inspector.cpp:115-353); the
+    # headless analog is a small textual command protocol applied to the
+    # same registered refs. Commands (whitespace-separated):
+    #
+    #   get <ns>.<field>                 -> current value
+    #   set <ns>.<field> <v> [v2 v3 v4]  -> assign (tuples space-separated)
+    #   list <ns>                        -> field names
+    #   camera move <dx> <dy> <dz>       -> View.move_perspective
+    #   camera rotate <yaw> <pitch>      -> View.rotate_perspective
+    #   gizmos on|off / dump <path>|off / print <msg>
+    #   gizmo press|drag <x> <y> / gizmo release   (interactive light
+    #       gizmos — see _gizmo_command below)
+    #
+    # Namespaces: material (set_material ref), scene (set_scene ref),
+    # light.<i> (set_lights ref), view (every view's live params).
+    # Edits land in the registered objects — for ABI hosts those are
+    # ctypes proxies over HOST memory, so the next frame's descriptor
+    # push picks them up exactly like the reference's in-place panels.
+
+    # View-level attributes; everything else under view.* resolves into
+    # the per-frame ViewDesc (resolution_scale, di/gi_samples, max_lights,
+    # motion_blur_strength, upscaler, upscaler_mode, upscaler_sharpness,
+    # denoiser_enabled) — the same split as RT64_VIEW_DESC vs View state.
+    _VIEW_ATTRS = ("max_reflections", "visualization_mode",
+                   "pipelined_present", "can_reproject")
+
+    def command(self, cmd: str) -> str:
+        try:
+            return self._command(cmd)
+        except Exception as exc:  # noqa: BLE001 — boundary surface
+            return f"ERR {exc}"
+
+    def _views(self):
+        return [v for s in self.device.scenes for v in s.views]
+
+    def _resolve(self, path: str):
+        """path 'ns.field' or 'light.N.field' -> (obj, field)."""
+        parts = path.split(".")
+        ns = parts[0]
+        if ns == "material":
+            if self.material_ref is None:
+                raise ValueError("no material registered")
+            return self.material_ref, parts[1]
+        if ns == "scene":
+            if self.scene_desc_ref is None:
+                raise ValueError("no scene desc registered")
+            return self.scene_desc_ref, parts[1]
+        if ns == "light":
+            if self.lights_ref is None:
+                raise ValueError("no lights registered")
+            lights, count, _ = self.lights_ref
+            i = int(parts[1])
+            if not 0 <= i < count:
+                raise ValueError(f"light index {i} out of range {count}")
+            return lights[i], parts[2]
+        if ns == "view":
+            views = self._views()
+            if not views:
+                raise ValueError("no views")
+            field = parts[1]
+            if field in self._VIEW_ATTRS:
+                return views, field  # list marker: apply to all
+            import dataclasses as _dc
+
+            if field in {f.name for f in _dc.fields(views[0].desc)}:
+                return [v.desc for v in views], field
+            raise ValueError(f"unknown view field {field}")
+        raise ValueError(f"unknown namespace {ns}")
+
+    @staticmethod
+    def _fmt(val) -> str:
+        if isinstance(val, (tuple, list)):
+            return " ".join(f"{v:g}" if isinstance(v, float) else str(v)
+                            for v in val)
+        if isinstance(val, float):
+            return f"{val:g}"
+        if isinstance(val, bool):
+            return "1" if val else "0"
+        return str(val)
+
+    @staticmethod
+    def _parse(old, args):
+        def one(ref, s):
+            if isinstance(ref, bool):
+                return s.lower() in ("1", "true", "on", "yes")
+            if isinstance(ref, int):
+                return int(s, 0)
+            return float(s)
+
+        if isinstance(old, (tuple, list)):
+            if len(args) != len(old):
+                raise ValueError(f"expected {len(old)} values")
+            return tuple(one(o, a) for o, a in zip(old, args))
+        if len(args) != 1:
+            raise ValueError("expected 1 value")
+        return one(old, args[0])
+
+    def _command(self, cmd: str) -> str:
+        toks = cmd.strip().split()
+        if not toks:
+            return "ERR empty command"
+        op = toks[0].lower()
+        if op == "print":
+            self.print_message(cmd.split(None, 1)[1] if len(toks) > 1 else "")
+            return "OK"
+        if op == "gizmos":
+            self.show_light_gizmos = len(toks) > 1 and toks[1] == "on"
+            return "OK"
+        if op == "gizmo":
+            return self._gizmo_command(toks[1:])
+        if op == "dump":
+            self.dump_path = None if (len(toks) < 2 or toks[1] == "off") else toks[1]
+            return "OK"
+        if op == "camera":
+            views = self._views()
+            if toks[1] == "move":
+                delta = tuple(float(t) for t in toks[2:5])
+                for v in views:
+                    v.move_perspective(delta)
+            elif toks[1] == "rotate":
+                yaw, pitch = float(toks[2]), float(toks[3])
+                for v in views:
+                    v.rotate_perspective(yaw, pitch)
+            else:
+                raise ValueError(f"unknown camera op {toks[1]}")
+            return "OK"
+        if op == "list":
+            ns = toks[1]
+            if ns == "view":
+                import dataclasses as _dc
+
+                views = self._views()
+                desc_fields = (
+                    [f.name for f in _dc.fields(views[0].desc)] if views else []
+                )
+                return " ".join(list(self._VIEW_ATTRS) + desc_fields)
+            probe = {"material": self.material_ref,
+                     "scene": self.scene_desc_ref}.get(ns)
+            if ns == "light":
+                probe = self.lights_ref[0][0] if self.lights_ref else None
+            if probe is None:
+                raise ValueError(f"nothing registered for {ns}")
+            import dataclasses as _dc
+
+            if _dc.is_dataclass(probe):
+                return " ".join(f.name for f in _dc.fields(probe))
+            return " ".join(getattr(probe, "field_names", lambda: [])())
+        if op in ("get", "set"):
+            obj, field = self._resolve(toks[1])
+            targets = obj if isinstance(obj, list) else [obj]
+            if op == "get":
+                return self._fmt(getattr(targets[0], field))
+            old = getattr(targets[0], field)
+            val = self._parse(old, toks[2:])
+            for t in targets:
+                setattr(t, field, val)
+            return "OK"
+        raise ValueError(f"unknown op {op}")
+
+    # -- interactive light gizmos (Im3d::GizmoTranslation analog) ------------
+    #
+    # The reference's light editor attaches a translation gizmo to each
+    # light, driven by the cursor ray Im3d builds in setupWithView
+    # (rt64_inspector.cpp:324, 417-436). The headless analog is three
+    # commands a host feeds through RT64_HandleMessageInspector exactly
+    # like forwarded mouse messages:
+    #
+    #   gizmo press <x> <y>   -> pick the light whose gizmo sphere the
+    #                            cursor ray hits; reply "OK <i>"/"MISS"
+    #   gizmo drag  <x> <y>   -> translate the picked light in the
+    #                            camera-facing plane through its grab
+    #                            point (Im3d's center-ball drag);
+    #                            reply "OK <x> <y> <z>"
+    #   gizmo release         -> drop the selection
+    #
+    # Edits write through the registered light refs (ctypes proxies for
+    # ABI hosts), so the host's next setLights push renders the move —
+    # the same in-place mutation as Im3d writing &lights[i].position.x.
+    GIZMO_PICK_PIXELS = 8.0  # handle radius on screen, Im3d-style
+
+    def _gizmo_pick_radius(self, light, depth: float, view: "View") -> float:
+        """Gizmo handles keep constant SCREEN size (Im3d scales by
+        m_projScaleY * depth); pick radius is that handle size or the
+        light's point sphere, whichever is larger."""
+        import math as _m
+
+        world_per_px = (
+            2.0 * _m.tan(view.fov_radians * 0.5) * max(depth, 1e-6)
+            / view.height
+        )
+        return max(float(light.point_radius),
+                   self.GIZMO_PICK_PIXELS * world_per_px)
+
+    def _gizmo_command(self, toks) -> str:
+        views = self._views()
+        if not views:
+            raise ValueError("no views")
+        view = views[0]
+        if not toks:
+            raise ValueError("gizmo press|drag|release")
+        sub = toks[0]
+        if sub == "release":
+            self._gizmo_drag = None
+            return "OK"
+        if self.lights_ref is None:
+            raise ValueError("no lights registered")
+        lights, count, _ = self.lights_ref
+        x, y = float(toks[1]), float(toks[2])
+        eye = view.get_view_position()
+        ray = view.get_ray_direction_at(x, y)
+        if sub == "press":
+            best = None
+            for i in range(count):
+                c = np.asarray(lights[i].position, np.float32)
+                oc = c - eye
+                t = float(np.dot(oc, ray))  # closest approach along ray
+                if t <= 0.0:
+                    continue
+                miss2 = float(np.dot(oc, oc)) - t * t
+                r = self._gizmo_pick_radius(lights[i], t, view)
+                if miss2 <= r * r and (best is None or t < best[1]):
+                    best = (i, t)
+            if best is None:
+                self._gizmo_drag = None
+                return "MISS"
+            i, t = best
+            grab = eye + ray * t
+            self._gizmo_drag = {
+                "light": i,
+                "grab": grab,
+                # Drag plane faces the camera through the grab point
+                # (Im3d center-ball translation).
+                "normal": view.get_view_direction(),
+            }
+            return f"OK {i}"
+        if sub == "drag":
+            if self._gizmo_drag is None:
+                return "MISS"
+            st = self._gizmo_drag
+            denom = float(np.dot(ray, st["normal"]))
+            if abs(denom) < 1e-8:
+                return "MISS"
+            t = float(np.dot(st["grab"] - eye, st["normal"])) / denom
+            if t <= 0.0:
+                return "MISS"
+            new_grab = eye + ray * t
+            delta = new_grab - st["grab"]
+            li = lights[st["light"]]
+            li.position = tuple(
+                float(p) + float(dd)
+                for p, dd in zip(li.position, delta)
+            )
+            st["grab"] = new_grab
+            return "OK " + self._fmt(li.position)
+        raise ValueError(f"unknown gizmo op {sub}")
+
+    def render(self):
+        if self.show_light_gizmos:
+            for scene in self.device.scenes:
+                for view in scene.views:
+                    self._draw_light_gizmos(scene, view)
+        if self.dump_path:
+            from rt64tpu_torch.utils.assets import write_png
+
+            for scene in self.device.scenes:
+                for view in scene.views:
+                    write_png(
+                        f"{self.dump_path}/frame_{self._dump_index:05d}.png",
+                        view.framebuffer(),
+                    )
+            self._dump_index += 1
+
+    def _draw_light_gizmos(self, scene: "Scene", view: "View"):
+        """Im3d light-sphere gizmo analog (rt64_inspector.cpp:311-353):
+        overlays a ring at each light's projected position on the
+        retained framebuffer (debug path, host-side).
+
+        Occlusion dither (Im3DPS.hlsl:9-26): where the scene's primary
+        hit lies closer than the gizmo, only every other checkerboard
+        pixel draws, at half opacity — the gizmo reads as 'behind'
+        without a depth buffer blend."""
+        fb = view._framebuffer
+        if fb is None:
+            return
+        h, w = fb.shape[:2]
+        proj = math3d.perspective_fov_rh(
+            view.fov_radians, w / h, view.near_dist, view.far_dist
+        )
+        vp = view.view_matrix @ proj
+        eye = np.linalg.inv(view.view_matrix.astype(np.float64))[3, :3]
+
+        # Scene hit distance per rt pixel (inf at misses), read from the
+        # presented frame's planes (the gHitDistAndFlow read of
+        # Im3DPS.hlsl:13): the frame on screen, also when the present
+        # ring trails the draws.
+        occl = None
+        rt_h = rt_w = 0
+        r = view._renderer
+        src = r._pick_src if r is not None else None
+        if src is not None:
+            from rt64tpu_torch.pipeline import framegraph as fg
+
+            pick, cfg = src
+            pos = fg.to_image(cfg, pick.position).cpu().numpy()
+            inst = fg.to_image(cfg, pick.instance).cpu().numpy()
+            dist = np.linalg.norm(
+                pos.transpose(1, 2, 0) - eye[None, None, :], axis=-1
+            )
+            occl = np.where(inst >= 0, dist, np.inf)
+            rt_h, rt_w = occl.shape
+
+        for light in scene.lights:
+            clip = math3d.transform_points_h(
+                np.asarray(light.position, np.float32), vp
+            )
+            if clip[3] <= 0:
+                continue
+            sx = int((0.5 + 0.5 * clip[0] / clip[3]) * w)
+            sy = int((0.5 - 0.5 * clip[1] / clip[3]) * h)
+            if not (0 <= sx < w and 0 <= sy < h):
+                continue
+            color = np.clip(
+                np.asarray(light.diffuse_color) * 255 + 64, 0, 255
+            ).astype(np.uint8)
+            rad = 5
+            yy, xx = np.mgrid[-rad : rad + 1, -rad : rad + 1]
+            ring = np.abs(np.hypot(xx, yy) - rad) < 1.0
+            ys = np.clip(sy + yy[ring], 0, h - 1)
+            xs = np.clip(sx + xx[ring], 0, w - 1)
+            if occl is not None:
+                gizmo_dist = float(np.linalg.norm(
+                    np.asarray(light.position, np.float64) - eye
+                ))
+                oy = np.clip(ys * rt_h // h, 0, rt_h - 1)
+                ox = np.clip(xs * rt_w // w, 0, rt_w - 1)
+                occluded = occl[oy, ox] < gizmo_dist
+                # clip(fmod(x + y, 2) - 1): only odd-parity pixels
+                # survive when occluded, at alpha 0.5.
+                keep = ~occluded | (((xs + ys) % 2) == 1)
+                alpha = np.where(occluded, 0.5, 1.0)[keep, None]
+                ys_k, xs_k = ys[keep], xs[keep]
+                fb[ys_k, xs_k, :3] = (
+                    fb[ys_k, xs_k, :3] * (1.0 - alpha) + color * alpha
+                ).astype(np.uint8)
+            else:
+                fb[ys, xs, :3] = color
 
 
 # Packed light layout (columns), matching LightInfo (Lights.hlsli:9-19):

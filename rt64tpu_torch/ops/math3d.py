@@ -19,6 +19,11 @@ def transform_points(points, m):
     return points @ m[..., :3, :3] + m[..., 3, :3]
 
 
+def transform_points_h(points, m):
+    """``[p, 1] @ M`` -> xyzw (homogeneous). points: (..., 3)."""
+    return points @ m[..., :3, :4] + m[..., 3, :4]
+
+
 def transform_dirs(dirs, m):
     """``[d, 0] @ M`` -> xyz (no translation)."""
     return dirs @ m[..., :3, :3]
@@ -64,6 +69,13 @@ def translation(x: float, y: float, z: float):
     m = np.eye(4, dtype=np.float32)
     m[3, :3] = (x, y, z)
     return m
+
+
+def rotation_y(angle: float):
+    c, s = math.cos(angle), math.sin(angle)
+    return np.array(
+        [[c, 0, -s, 0], [0, 1, 0, 0], [s, 0, c, 0], [0, 0, 0, 1]], np.float32
+    )
 
 
 def halton(i: int, b: int) -> float:

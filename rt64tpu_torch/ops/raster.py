@@ -212,7 +212,8 @@ def _batches(tris):
 
 
 def rasterize(image, raster_rows, raster_count, rows_host, instance_rows,
-              quad_pool, quad_records, bounding_box: bool = True):
+              quad_pool, quad_records, bounding_box: bool = True,
+              row_offset: int = 0, full_height: int = 0):
     """Blend raster triangles over image; returns the new (4, H, W).
 
     image: (4, H, W) rgba target (not modified); raster_rows: (RB,
@@ -222,6 +223,9 @@ def rasterize(image, raster_rows, raster_count, rows_host, instance_rows,
     copies of the rows, the instance rows and the quad-pool records;
     quad_pool: the device pool. bounding_box=False evaluates every
     triangle over the whole target (the reference for the box path).
+    Under row tiling image holds rows row_offset.. of a target
+    full_height tall: viewports and pixel centres are the whole
+    target's, and each box is cut to the band.
 
     Consecutive triangles of one instance are shaded together over a
     common box size (each box placed to hold its triangle's), then
@@ -232,26 +236,32 @@ def rasterize(image, raster_rows, raster_count, rows_host, instance_rows,
         return image
     _, height, width = image.shape
     attrs = _attribute_table(raster_rows[:count])
-    tris = [_setup(ti, rows_host[ti], instance_rows, width, height,
-                   bounding_box) for ti in range(count)]
+    band = (row_offset, row_offset + height)
+    tris = [_setup(ti, rows_host[ti], instance_rows, width,
+                   full_height or height, bounding_box)
+            for ti in range(count)]
+    tris = [t._replace(box=(t.box[0], t.box[1], max(t.box[2], band[0]),
+                            min(t.box[3], band[1]))) for t in tris]
     out = image.clone()
     for run in _batches(tris):
         _draw_batch(out, run, attrs[run[0].row : run[-1].row + 1],
-                    instance_rows[run[0].inst], quad_pool, quad_records)
+                    instance_rows[run[0].inst], quad_pool, quad_records,
+                    row_offset)
     return out
 
 
-def _draw_batch(out, run, a, irow, quad_pool, quad_records):
+def _draw_batch(out, run, a, irow, quad_pool, quad_records, row_offset=0):
     """Shade the triangles of one run (same instance; a: their (K, 3
     corners, 10 channels) attributes) over a common box size and blend
-    them over out, in order."""
+    them over out (rows row_offset.. of the target), in order."""
     _, height, width = out.shape
     dev = out.device
     bh = max(t.box[3] - t.box[2] for t in run)
     bw = max(t.box[1] - t.box[0] for t in run)
     table = np.array([t.scalars for t in run], np.float32)
-    # Each box starts at its triangle's box, moved back to fit the target.
-    origin = [(min(t.box[0], width - bw), min(t.box[2], height - bh)) for t in run]
+    # Each box starts at its triangle's box, moved back to fit the band.
+    origin = [(min(t.box[0], width - bw),
+               min(t.box[2], row_offset + height - bh)) for t in run]
     table[:, _C["ox"]] = [o[0] for o in origin]
     table[:, _C["oy"]] = [o[1] for o in origin]
     tab = _upload(table, dev)
@@ -329,6 +339,6 @@ def _draw_batch(out, run, a, irow, quad_pool, quad_records):
     keep = 1.0 - sa
     src = color[:3] * sa[None]
     for k, (ox, oy) in enumerate(origin):
-        region = out[:, oy : oy + bh, ox : ox + bw]
+        region = out[:, oy - row_offset : oy - row_offset + bh, ox : ox + bw]
         region[:3].mul_(keep[k][None]).add_(src[:, k])
         region[3].mul_(keep[k]).add_(sa[k])

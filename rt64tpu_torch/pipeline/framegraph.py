@@ -75,6 +75,22 @@ class RenderConfig:
     # RCAS gate: the view sets it when an upscaler runs with a sharpness
     # above 0 (gp.upscaler_sharpness carries the strength).
     sharpen_enabled: bool = False
+    # Row tiling (parallel/tiling.py): rt_height and display_height are
+    # this band's rows; full_height is the whole frame's (0: unbanded).
+    full_height: int = 0
+
+    @property
+    def grid_height(self) -> int:
+        """Render rows of the whole frame: screen-space math (ray
+        directions, flow, the sky's uv, reprojection bounds) uses it."""
+        return self.full_height or self.rt_height
+
+    @property
+    def display_grid_height(self) -> int:
+        """Display rows of the whole frame."""
+        if not self.full_height:
+            return self.display_height
+        return self.display_height * (self.full_height // self.rt_height)
 
     # Tile-swizzled ray order: each 8x64 pixel tile is contiguous in the
     # flat pixel axis, so the packet tracer's 512-ray blocks are compact
@@ -203,10 +219,12 @@ def make_trace_scene(sb, rows_t, alpha_cap: int) -> tracer.TraceScene:
     )
 
 
-def _pixel_grid(cfg: RenderConfig, device):
+def _pixel_grid(cfg: RenderConfig, device, row_offset: int = 0):
+    """(N, 2) int (x, y) of every pixel in the frame's order; y is
+    global under row tiling (the band starts at row_offset)."""
     h, w = cfg.rt_height, cfg.rt_width
     xx = torch.arange(w, dtype=torch.int32, device=device)
-    yy = torch.arange(h, dtype=torch.int32, device=device)
+    yy = torch.arange(h, dtype=torch.int32, device=device) + row_offset
     px = xx[None, :].expand(h, w)
     py = yy[:, None].expand(h, w)
     if cfg.tiled:
@@ -263,7 +281,9 @@ def to_image(cfg, plane):
 
 def flat_index(cfg, x, y):
     """Flat pixel index of integer coords (x, y) in the frame's order
-    (the y*W+x analog; used by reprojection gathers)."""
+    (the y*W+x analog; used by reprojection gathers). Coordinates are
+    global under row tiling: the bands of one tiling, concatenated, are
+    the whole frame's planes in that tiling."""
     w = cfg.rt_width
     if not cfg.tiled:
         return y * w + x
@@ -273,11 +293,11 @@ def flat_index(cfg, x, y):
     return block * (th * tw) + within
 
 
-def primary_rays(cfg: RenderConfig, gp: GlobalParams):
+def primary_rays(cfg: RenderConfig, gp: GlobalParams, row_offset: int = 0):
     """Camera ray setup (PrimaryRayGen.hlsl:33-40): planar origin (3, N)
     and NON-normalized direction (3, N), exactly like the reference."""
-    pix = _pixel_grid(cfg, gp.view.device)
-    w, h = cfg.rt_width, cfg.rt_height
+    pix = _pixel_grid(cfg, gp.view.device, row_offset)
+    w, h = cfg.rt_width, cfg.grid_height
     dx = ((pix[:, 0].to(torch.float32) + 0.5 + gp.pixel_jitter[0]) / w) * 2.0 - 1.0
     dy = ((pix[:, 1].to(torch.float32) + 0.5 + gp.pixel_jitter[1]) / h) * 2.0 - 1.0
     pi = gp.projection_i
@@ -602,7 +622,7 @@ def primary_pass(
         # direction: parallel to the traced projI-basis dir, but scaled
         # consistently with cameraU/cameraV, which computeRayDiffs'
         # dot(d, r) terms require.
-        w_, h_ = cfg.rt_width, cfg.rt_height
+        w_, h_ = cfg.rt_width, cfg.grid_height
         ndx = ((pix[:, 0].to(torch.float32) + 0.5 + gp.pixel_jitter[0])
                / w_) * 2.0 - 1.0
         ndy = ((pix[:, 1].to(torch.float32) + 0.5 + gp.pixel_jitter[1])
@@ -638,16 +658,17 @@ def primary_pass(
     else:
         tl_plan = None
 
-    # Motion flow (PrimaryRayGen.hlsl:52-56, 163-175, 194).
+    # Motion flow (PrimaryRayGen.hlsl:52-56, 163-175, 194), in pixels of
+    # the whole frame (the JAX package scales a band's by its own rows).
     bg_pos = origins + dirs * tracer.RAY_MAX_DISTANCE
     pu, pv = world_to_screen(gp.prev_view_proj, bg_pos)
     cu, cv = world_to_screen(gp.view_proj, bg_pos)
     flow_bg_x = (cu - pu) * cfg.rt_width
-    flow_bg_y = (cv - pv) * cfg.rt_height
+    flow_bg_y = (cv - pv) * cfg.grid_height
     pu2, pv2 = world_to_screen(gp.prev_view_proj, st_pos - st_flow3)
     cu2, cv2 = world_to_screen(gp.view_proj, st_pos)
     flow_x = torch.where(stored, (cu2 - pu2) * cfg.rt_width, flow_bg_x)
-    flow_y = torch.where(stored, (cv2 - pv2) * cfg.rt_height, flow_bg_y)
+    flow_y = torch.where(stored, (cv2 - pv2) * cfg.grid_height, flow_bg_y)
     flow = torch.stack([-flow_x, flow_y], 0)  # gFlow sign flip (hlsl:194)
 
     depth = torch.where(stored, _screen_depth(gp.view_proj, st_pos), 1.0)
@@ -718,13 +739,15 @@ def direct_pass(cfg, gp, g: GBuffers, ctx, direct_light):
     return torch.where(no_hit[None], miss, out)
 
 
-def _reproject(prev_buf, prev_depth, prev_normal, depth, normal, flow, cfg):
+def _reproject(prev_buf, prev_depth, prev_normal, depth, normal, flow, cfg,
+               row_offset: int = 0):
     """Temporal reprojection (DirectRayGen.hlsl:35-48): the previous
     frame's accumulation at the pixel the flow points back to, weighted
-    by depth and normal agreement. Returns (rgb (3, N), history length
-    (N,))."""
-    h, w = cfg.rt_height, cfg.rt_width
-    pix = _pixel_grid(cfg, depth.device).to(torch.float32)
+    by depth and normal agreement. The previous planes cover the whole
+    frame (under row tiling too), so the flow may cross band edges.
+    Returns (rgb (3, N), history length (N,))."""
+    h, w = cfg.grid_height, cfg.rt_width
+    pix = _pixel_grid(cfg, depth.device, row_offset).to(torch.float32)
     px = torch.floor(pix[:, 0] + 0.5 + flow[0]).to(torch.int32)
     py = torch.floor(pix[:, 1] + 0.5 + flow[1]).to(torch.int32)
     inb = (px >= 0) & (px < w) & (py >= 0) & (py < h)
@@ -823,7 +846,7 @@ def _cos_hemisphere(r1, r2, normal):
 
 def indirect_pass(
     sb, tri_rows, trace_scene, cfg, gp, g: GBuffers, hist: History,
-    pix, bn_table, noise_rand, bg_planes,
+    pix, bn_table, noise_rand, bg_planes, row_offset: int = 0,
 ):
     """IndirectRayGen.hlsl:31-137: 1-bounce blue-noise diffuse GI.
     Bounce rays are regrouped by direction and their shadow rays by
@@ -845,6 +868,7 @@ def indirect_pass(
 
     prev_rgb, prev_len = _reproject(
         hist.indirect, hist.depth, hist.normal, g.depth, normal, g.flow, cfg,
+        row_offset,
     )
     new_indirect = torch.where(gp.gi_reproject, prev_rgb, 0.0)
     hist_len = torch.where(gp.gi_reproject, prev_len, 0.0)
@@ -1177,10 +1201,12 @@ def reflection_pass(
             refl_dropped + li_drop)
 
 
-def _raster_layer(image, sb: SceneBuffers, layer: str):
+def _raster_layer(image, sb: SceneBuffers, layer: str, row_offset: int = 0,
+                  full_height: int = 0):
     """Blend one raster layer ("bg" or "fg") of the scene over image
-    (4, H, W); the triangles and their draw state come from the
-    packer's host copies (SceneBuffers.raster_host)."""
+    (4, H, W), rows row_offset.. of a target full_height tall (0: H);
+    the triangles and their draw state come from the packer's host
+    copies (SceneBuffers.raster_host)."""
     rows = getattr(sb, f"raster_{layer}")
     host = sb.raster_host
     if host is None:
@@ -1191,32 +1217,44 @@ def _raster_layer(image, sb: SceneBuffers, layer: str):
     rows_host = getattr(host, layer)
     return raster.rasterize(image, rows, rows_host.shape[0], rows_host,
                             host.instance_rows, sb.quad_pool,
-                            host.quad_records)
+                            host.quad_records, row_offset=row_offset,
+                            full_height=full_height)
 
 
 def background(sb: SceneBuffers, gp: GlobalParams, cfg: RenderConfig,
-               bg_planes):
+               bg_planes, row_offset: int = 0):
     """The raster background composited over the base plane bg_planes
-    (3, H, W) (rt64_view.cpp:1292-1319), and the fixed-grid background +
-    sky sample the primary and refracted misses read
+    (3, grid_height, W) (rt64_view.cpp:1292-1319), and the fixed-grid
+    background + sky sample the primary and refracted misses read
     (PrimaryRayGen.hlsl:47-56), (3, N) in the frame's pixel order. Both
     grids read gp.pixel_jitter. Without raster-background triangles none
-    of the background work runs (the plane stays black)."""
-    h, w = cfg.rt_height, cfg.rt_width
+    of the background work runs (the plane stays black).
+
+    Under row tiling the plane is the whole frame's: every band
+    composites all of it, since bounce and mirror misses read it as an
+    environment map, and takes its own rows of the grid sample, so a
+    band equals the whole frame's rows."""
+    h, w, gh = cfg.rt_height, cfg.rt_width, cfg.grid_height
     dev = gp.view.device
+    if bg_planes is not None and bg_planes.shape[1] != gh:
+        raise ValueError(f"background plane of {bg_planes.shape[1]} rows; "
+                         f"the frame's grid has {gh}")
     if sb.features.has_raster_bg:
-        bg_rgba = torch.cat([bg_planes, torch.ones((1, h, w), device=dev)], 0)
+        if bg_planes is None:
+            bg_planes = torch.zeros((3, gh, w), device=dev)
+        bg_rgba = torch.cat([bg_planes, torch.ones((1, gh, w), device=dev)], 0)
         bg_planes = _raster_layer(bg_rgba, sb, "bg")[:3]
         bg_color = sky.sample_background_grid(bg_planes, *gp.pixel_jitter)
+        bg_color = bg_color[:, row_offset * w : (row_offset + h) * w]
     else:
         bg_color = torch.zeros((3, h * w), device=dev)
     if sb.sky_plane is not None:
         sky_c = sky.sample_sky_2d_grid(
             sb.sky_plane, gp.sky_plane_rec, gp.pixel_jitter, gp.view_i,
-            torch.tensor([cfg.display_width, cfg.display_height],
+            torch.tensor([cfg.display_width, cfg.display_grid_height],
                          dtype=torch.float32, device=dev),
             gp.sky_yaw_offset, gp.sky_diffuse_mult, gp.sky_hsl_mod,
-            w, h, h,
+            w, h, gh, row_offset,
         )
         bg_color = bg_color * (1.0 - sky_c[3])[None] + sky_c[:3] * sky_c[3][None]
     # Both grid samples come in row-major pixel order; the rays read them
@@ -1233,16 +1271,19 @@ def render_frame(
     visualization_mode: int = 0,
     bg_planes=None,
     temporal=None,
+    row_offset: int = 0,
 ) -> FrameOutputs:
     """The full frame: View::render as one function.
 
-    bg_planes: (3, H, W) base plane the raster background composites
-    onto (the view passes a black one, as the reference's host clears
-    to black before the background instances draw,
+    bg_planes: (3, grid_height, W) base plane the raster background
+    composites onto (the view passes a black one, as the reference's
+    host clears to black before the background instances draw,
     rt64_view.cpp:1292-1319). Read only when the scene has
     raster-background triangles. temporal: the temporal upscaler's
     display-size state from the last frame (FrameOutputs.temporal), or
-    None for a fresh one."""
+    None for a fresh one. row_offset: the first row of this band when
+    cfg is a band of a row-tiled frame (parallel/tiling.py); the
+    history then covers the whole frame."""
     h, w = cfg.rt_height, cfg.rt_width
     n = h * w
     dev = gp.view.device
@@ -1250,7 +1291,7 @@ def render_frame(
     tri_rows, rows_t = shade_ops.build_tri_rows(sb)
     trace_scene = make_trace_scene(sb, rows_t, cfg.alpha_cap)
 
-    pix, origins, dirs = primary_rays(cfg, gp)
+    pix, origins, dirs = primary_rays(cfg, gp, row_offset)
     noise_rand = _noise_rand(cfg, gp, pix)
 
     # Every blue-noise fetch in the frame reads the regular pixel grid
@@ -1260,9 +1301,10 @@ def render_frame(
         swz = lambda plane: torch.stack(
             [_from_image_1(cfg, plane[..., c]) for c in range(3)], dim=-1
         )
-    bn = bluenoise.grid_sampler(bn_table, w, h, swizzle=swz)
+    bn = bluenoise.grid_sampler(bn_table, w, h, row_offset=row_offset,
+                                swizzle=swz)
 
-    bg_planes, bg_color = background(sb, gp, cfg, bg_planes)
+    bg_planes, bg_color = background(sb, gp, cfg, bg_planes, row_offset)
 
     t_min = torch.full((n,), tracer.RAY_MIN_DISTANCE, device=dev)
     t_max = torch.full((n,), tracer.RAY_MAX_DISTANCE, device=dev)
@@ -1301,7 +1343,7 @@ def render_frame(
     )
     indirect_accum, i_drop = indirect_pass(
         sb, tri_rows, trace_scene, cfg, gp, g, history, pix, bn, noise_rand,
-        bg_planes,
+        bg_planes, row_offset,
     )
     alpha_dropped = alpha_dropped + i_drop
     if cfg.refraction_enabled:
@@ -1357,11 +1399,14 @@ def render_frame(
         )
 
     # Raster foreground (HUD) over the display image
-    # (rt64_view.cpp:1657-1661), row-major at display size.
+    # (rt64_view.cpp:1657-1661), row-major at display size; a band draws
+    # its rows of the whole display.
     if sb.raster_fg.shape[0]:
         dh, dw = disp.shape[1], disp.shape[2]
         disp_rgba = torch.cat([disp, torch.ones((1, dh, dw), device=dev)], 0)
-        disp = _raster_layer(disp_rgba, sb, "fg")[:3]
+        disp = _raster_layer(disp_rgba, sb, "fg",
+                             row_offset=row_offset * dh // h,
+                             full_height=cfg.display_grid_height)[:3]
 
     return FrameOutputs(
         image=disp,

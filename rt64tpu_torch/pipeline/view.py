@@ -4,15 +4,19 @@ The View::update / View::render split of the reference
 (rt64_view.cpp:1053-1178 / :1180-1667): update() assembles scene
 buffers (instance classification + uploads), render() runs the frame
 and retains the outputs for presentation and picking, and carries the
-temporal upscaler's display-size history from frame to frame. Frames
-are full sync, like the reference (rt64_device.cpp:1006-1025): the
-present reads the RGB8 frame back, and the alpha-overflow check reads
-one device scalar per frame.
+temporal upscaler's display-size history from frame to frame.
+
+Full sync (the reference's model, rt64_device.cpp:1006-1025): the frame
+reads its alpha-overflow scalar and its RGB8 present back before draw
+returns. Pipelined: frame N presents frame N - depth, and nothing of
+the frame in flight is read back: its present and drop scalar are
+copied to pinned host buffers behind it and read once its event has
+passed.
 """
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -20,7 +24,7 @@ import torch
 from rt64tpu_torch import descriptors as d
 from rt64tpu_torch.convert import global_params_from_numpy
 from rt64tpu_torch.models import upscaler as ups
-from rt64tpu_torch.ops import bluenoise, math3d
+from rt64tpu_torch.ops import bluenoise, filters, math3d
 from rt64tpu_torch.pipeline import framegraph as fg
 from rt64tpu_torch.pipeline.scene_buffers import ScenePacker
 from rt64tpu_torch.utils.log import breadcrumb
@@ -28,14 +32,45 @@ from rt64tpu_torch.utils.log import breadcrumb
 MAX_ALPHA_BOOST = 16
 
 
+class PickPlanes(NamedTuple):
+    """The planes of a presented frame that picking and the Inspector's
+    gizmos read, in the frame's pixel order."""
+
+    instance: torch.Tensor  # (N,) int32
+    position: torch.Tensor  # (3, N)
+
+
+class _InFlight(NamedTuple):
+    """One frame in the present ring: its RGB8 present and alpha-drop
+    count on the host (pinned on the card, filled behind the frame until
+    `event` has passed), and its picking planes. Not the whole
+    FrameOutputs: two frames in flight would hold every g-buffer."""
+
+    rgb: torch.Tensor  # (DH, DW, 3) uint8
+    dropped: torch.Tensor  # () int64
+    event: Optional[torch.cuda.Event]
+    pick: PickPlanes
+    cfg: fg.RenderConfig
+
+
+def _pinned(shape, dtype) -> torch.Tensor:
+    buf = torch.empty(shape, dtype=dtype, pin_memory=True)
+    if not buf.is_pinned():
+        raise RuntimeError("the present ring needs pinned host memory")
+    return buf
+
+
 class ViewRenderer:
-    def __init__(self, view, pipelined: bool = False):
-        if pipelined:
-            raise NotImplementedError(
-                "the pipelined present ring is not ported yet: ROADMAP "
-                "queue 1 item 13"
-            )
+    """pipelined is read at every render, so a host may flip it on a live
+    renderer; pipeline_depth is the frames a present trails its draw (the
+    JAX package's argument; every caller uses its default, 2)."""
+
+    def __init__(self, view, pipelined: bool = False, pipeline_depth: int = 2):
         self.view = view
+        self.pipelined = pipelined
+        self.pipeline_depth = max(1, pipeline_depth)
+        self._pending = []  # _InFlight, oldest first
+        self._spare = []  # popped frames' pinned buffers, for reuse
         device = view.scene.device
         self.device = device.device
         self.packer = ScenePacker(device.limits, self.device)
@@ -47,9 +82,11 @@ class ViewRenderer:
         self._temporal = None  # the temporal upscaler's history (display size)
         self._prev_view_proj = None
         self._prev_view_i = None
-        self._last = None
+        self._last = None  # the newest frame's FrameOutputs
+        self._last_cfg = None
+        self._prev_image = None  # the frame before it's display image
         self._alpha_boost = 1
-        self._pick_src = None  # (FrameOutputs, cfg) of the presented frame
+        self._pick_src = None  # (PickPlanes, cfg) of the presented frame
         self._pick_plane = None  # cached on-demand picking readback
         self._bg_cache = {}  # (h, w) -> the black base plane on the device
 
@@ -116,26 +153,109 @@ class ViewRenderer:
             self._temporal = None
         gp = self._global_params(cfg, temporal_reset=fresh)
         out = self._frame(cfg, gp)
+        prev = self._last.image if self._last is not None else None
+        self._prev_image = (prev if prev is not None
+                            and prev.shape == out.image.shape else None)
+        if self.pipelined:
+            self._last, self._last_cfg = out, cfg
+            self._render_pipelined(out, cfg)
+            return
+        self._pending.clear()  # the ring restarts if pipelining comes back
         # Capacity auto-grow + SAME-FRAME re-render: if this frame dropped
         # alpha hits (compacted-shade overflow), double the capacity boost
         # and render the frame again before presenting. The re-render
         # consumes the dropped frame's output history (one more temporal
-        # step), as the JAX package does. The drop scalar is the frame's
-        # one host sync apart from the present.
+        # step), as the JAX package does. The drop scalar and the present
+        # are the view's own two host syncs a frame (the frame graph makes
+        # its own besides).
         while int(out.alpha_dropped) > 0 and self._alpha_boost < MAX_ALPHA_BOOST:
             self._alpha_boost = min(self._alpha_boost * 2, MAX_ALPHA_BOOST)
             breadcrumb(f"alpha shade capacity overflow; boost -> "
                        f"{self._alpha_boost}; re-rendering frame")
             cfg = self._config()
             out = self._frame(cfg, gp)
-        self._last = out
+        self._last, self._last_cfg = out, cfg
         # The RGB8 present: packed on the device, one readback.
-        frame = fg.present_rgb8(out.image).cpu().numpy()
+        self._present(fg.present_rgb8(out.image).cpu().numpy(),
+                      _pick_planes(out), cfg)
+
+    def _render_pipelined(self, out, cfg):
+        """Queue this frame and present the one `pipeline_depth` draws
+        older, as the JAX package does (the ring presents nothing until
+        it holds depth + 1 frames). The in-flight frame is not read: its
+        present and drop scalar are copied to the host behind it."""
+        self._pending.append(self._enqueue(out, cfg))
+        if len(self._pending) < self.pipeline_depth + 1:
+            return
+        done = self._pending.pop(0)
+        if done.event is not None:
+            done.event.synchronize()
+        dropped = int(done.dropped)
+        rgb = done.rgb.numpy()
+        if dropped > 0 and self._alpha_boost < MAX_ALPHA_BOOST:
+            # The frame misses alpha layers and its inputs are gone, so
+            # it is not re-rendered: the previous framebuffer stays on
+            # screen (and picking on it) for one frame, and the frames
+            # queued behind render at the grown capacity.
+            self._alpha_boost = min(self._alpha_boost * 2, MAX_ALPHA_BOOST)
+            breadcrumb(f"alpha shade capacity overflow; boost -> "
+                       f"{self._alpha_boost}; holding previous frame")
+        else:
+            if dropped > 0:
+                breadcrumb(f"alpha shade capacity overflow at boost "
+                           f"{self._alpha_boost}: presenting a frame with "
+                           f"{dropped} alpha hits dropped")
+            self._present(rgb, done.pick, done.cfg)
+        if done.event is not None:
+            self._spare.append((done.rgb, done.dropped))
+
+    def _enqueue(self, out, cfg) -> _InFlight:
+        rgb8 = fg.present_rgb8(out.image)
+        if rgb8.device.type != "cuda":
+            # The CPU frame is finished when it returns: nothing to copy.
+            return _InFlight(rgb8, out.alpha_dropped, None, _pick_planes(out),
+                             cfg)
+        shape = tuple(rgb8.shape)
+        bufs = next((b for b in self._spare if tuple(b[0].shape) == shape), None)
+        if bufs is None:
+            bufs = (_pinned(shape, torch.uint8), _pinned((), torch.int64))
+        else:
+            self._spare.remove(bufs)
+        # The copies go on the frame's own stream, behind its kernels: no
+        # side stream to order against the frame, and the caching
+        # allocator may reuse the sources only after the copies on that
+        # stream. They are 2.7 MB at 1280x720, 25 MB at 3840x2160.
+        bufs[0].copy_(rgb8, non_blocking=True)
+        bufs[1].copy_(out.alpha_dropped, non_blocking=True)
+        event = torch.cuda.Event()
+        event.record()
+        return _InFlight(bufs[0], bufs[1], event, _pick_planes(out), cfg)
+
+    def _present(self, rgb, pick, cfg):
         self.view._framebuffer = np.concatenate(
-            [frame, np.full(frame.shape[:2] + (1,), 255, np.uint8)], axis=-1
+            [rgb, np.full(rgb.shape[:2] + (1,), 255, np.uint8)], axis=-1
         )
-        self._pick_src = (out, cfg)
+        self._pick_src = (pick, cfg)
         self._pick_plane = None
+
+    def interpolated_midframe(self, t: float = 0.5):
+        """Flow-interpolated frame between the two newest renders
+        (filters.interpolate_frame) as (DH, DW, 3) uint8, or None until
+        two frames of one display size exist. The newest frame's flow is
+        in render pixels: resized to the display and scaled by display /
+        render size per axis, from the config that frame rendered with
+        (the JAX package does neither: ROADMAP queue 3)."""
+        if self._last is None or self._prev_image is None:
+            return None
+        out, cfg = self._last, self._last_cfg
+        dh, dw = cfg.display_height, cfg.display_width
+        flow = filters.bilinear_resize(fg.to_image(cfg, out.gbuffers.flow),
+                                       dh, dw)
+        scale = torch.tensor([dw / cfg.rt_width, dh / cfg.rt_height],
+                             dtype=torch.float32, device=flow.device)
+        img = filters.interpolate_frame(self._prev_image, out.image,
+                                        flow * scale[:, None, None], t)
+        return fg.present_rgb8(img).cpu().numpy()
 
     def _frame(self, cfg, gp):
         out = fg.render_frame(self._sb, gp, self.history, self.bn_table, cfg,
@@ -163,10 +283,9 @@ class ViewRenderer:
         if self._pick_src is None:
             return None
         if self._pick_plane is None:
-            out, cfg = self._pick_src
+            pick, cfg = self._pick_src
             self._pick_plane = (
-                fg.to_image(cfg, out.gbuffers.instance).cpu().numpy()
-                .astype(np.int32)
+                fg.to_image(cfg, pick.instance).cpu().numpy().astype(np.int32)
             )
         return self._pick_plane
 
@@ -278,3 +397,6 @@ class ViewRenderer:
             upscaler_sharpness=np.float32(vd.upscaler_sharpness),
         ), self.device)
 
+
+def _pick_planes(out) -> PickPlanes:
+    return PickPlanes(out.gbuffers.instance, out.gbuffers.position)

@@ -1,12 +1,15 @@
-"""Asset IO: PNG read (the stb_image equivalent, rt64_texture.cpp:146-187).
+"""Asset IO: PNG read and write, BMP write (the stb_image equivalent,
+rt64_texture.cpp:146-187; frame dumping, rt64_device.cpp:1156-1215).
 
-A small decoder on zlib, struct and numpy, so the port reads images
-without an imaging library: 8-bit RGB and RGBA, non-interlaced, the
-five row filters of the PNG specification.
+Written on zlib, struct and numpy, so the port reads and writes images
+without an imaging library: it reads 8-bit RGB and RGBA, non-interlaced,
+with the five row filters of the PNG specification, and writes 8-bit
+RGBA with filter 0 (other encoders' bytes differ; the pixels do not).
 """
 
 from __future__ import annotations
 
+import os
 import struct
 import zlib
 
@@ -94,3 +97,49 @@ def read_image(path: str) -> np.ndarray:
         pixels = np.concatenate(
             [pixels, np.full((height, width, 1), 255, np.uint8)], -1)
     return np.ascontiguousarray(pixels)
+
+
+def _u8(rgba) -> np.ndarray:
+    """(H, W, C) uint8, or a float image in [0, 1] rounded to it."""
+    arr = np.asarray(rgba)
+    if arr.dtype != np.uint8:
+        arr = np.clip(arr * 255.0 + 0.5, 0, 255).astype(np.uint8)
+    return arr
+
+
+def _chunk(kind: bytes, body: bytes) -> bytes:
+    crc = zlib.crc32(kind + body) & 0xFFFFFFFF
+    return struct.pack(">I", len(body)) + kind + body + struct.pack(">I", crc)
+
+
+def write_png(path: str, rgba) -> None:
+    """Write an (H, W, 4) (or (H, W, 3), alpha 255) image as 8-bit RGBA
+    PNG, every row with filter 0."""
+    arr = _u8(rgba)
+    h, w = arr.shape[:2]
+    if arr.shape[2] == 3:
+        arr = np.concatenate([arr, np.full((h, w, 1), 255, np.uint8)], -1)
+    rows = np.concatenate([np.zeros((h, 1), np.uint8),
+                           np.ascontiguousarray(arr).reshape(h, w * 4)], 1)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(_SIGNATURE
+                + _chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 6, 0, 0, 0))
+                + _chunk(b"IDAT", zlib.compress(rows.tobytes()))
+                + _chunk(b"IEND", b""))
+
+
+def write_bmp(path: str, rgba) -> None:
+    """The reference's frame-dump format (rt64_device.cpp:1156): 24-bit
+    bottom-up BMP of the RGB channels, rows padded to 4 bytes."""
+    arr = _u8(rgba)[..., :3]
+    h, w = arr.shape[:2]
+    stride = (w * 3 + 3) & ~3
+    pixels = np.zeros((h, stride), np.uint8)
+    pixels[:, : w * 3] = arr[::-1, :, ::-1].reshape(h, w * 3)  # BGR, bottom up
+    header = struct.pack("<2sIHHI", b"BM", 54 + pixels.size, 0, 0, 54)
+    info = struct.pack("<IiiHHIIiiII", 40, w, h, 1, 24, 0, pixels.size,
+                       2835, 2835, 0, 0)
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(header + info + pixels.tobytes())

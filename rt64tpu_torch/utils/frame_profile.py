@@ -102,7 +102,7 @@ def upscale_block(view, reps=10):
     from rt64tpu_torch.pipeline import framegraph as fg
 
     r = view._renderer
-    out, cfg = r._pick_src
+    out, cfg = r._last, r._last_cfg
     g = out.gbuffers
     gp = r._global_params(cfg)._replace(
         upscaler_sharpness=torch.tensor(0.5, device=r.device),

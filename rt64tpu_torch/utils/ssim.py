@@ -8,20 +8,24 @@ import numpy as np
 
 
 def _gaussian_kernel(size=11, sigma=1.5):
+    """The 1-D factor of the normalised 2-D gaussian window: the window is
+    its outer product with itself."""
     ax = np.arange(size) - size // 2
     k = np.exp(-(ax**2) / (2 * sigma**2))
-    k = np.outer(k, k)
     return k / k.sum()
 
 
 def _filter2(img, kernel):
-    """Valid-mode 2D convolution via FFT-free sliding windows."""
-    kh, kw = kernel.shape
+    """Valid-mode 2D convolution with the separable window: the rows,
+    then the columns."""
+    n = kernel.shape[0]
     h, w = img.shape
-    out = np.zeros((h - kh + 1, w - kw + 1), np.float64)
-    for dy in range(kh):
-        for dx in range(kw):
-            out += kernel[dy, dx] * img[dy : dy + h - kh + 1, dx : dx + w - kw + 1]
+    rows = np.zeros((h, w - n + 1), np.float64)
+    for dx in range(n):
+        rows += kernel[dx] * img[:, dx : dx + w - n + 1]
+    out = np.zeros((h - n + 1, w - n + 1), np.float64)
+    for dy in range(n):
+        out += kernel[dy] * rows[dy : dy + h - n + 1]
     return out
 
 

@@ -1,7 +1,7 @@
 """rt64tpu_torch stands alone: it imports neither JAX nor the rt64tpu
 package, its Device defaults to the CUDA card, and every feature it
-does not render yet raises NotImplementedError instead of being
-skipped (the pipelined view)."""
+does not have yet raises NotImplementedError instead of being skipped
+(the DDS texture)."""
 
 import ast
 import os
@@ -15,6 +15,7 @@ import torch
 
 from rt64tpu_torch import descriptors as d
 from rt64tpu_torch.ops import math3d
+from rt64tpu_torch.pipeline import framegraph as fg
 from rt64tpu_torch.utils.testscenes import build_sample_scene, hud_triangle
 
 
@@ -157,16 +158,26 @@ def _raster_background(dev, scene, view):
 
 
 def _pipelined(dev, scene, view):
+    # As bench.py's streamed loop turns the ring on: on the live renderer.
     view.pipelined_present = True
+    view._renderer.pipelined = True
+
+
+def _dds_texture(dev, scene, view):
+    import rt64tpu_torch
+
+    rt64tpu_torch.Texture(dev, d.TextureDesc(
+        bytes=b"DDS " + bytes(124), byte_count=128,
+        format=d.TEXTURE_FORMAT_DDS))
 
 
 @pytest.mark.parametrize("enable", [
-    _pipelined,
+    _dds_texture,
 ], ids=lambda f: f.__name__.strip("_"))
 def test_out_of_slice_features_raise(enable):
     dev, scene, view = _scene()
-    enable(dev, scene, view)
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+        enable(dev, scene, view)
         dev.draw()
 
 
@@ -186,23 +197,29 @@ def _gi_denoiser(dev, scene, view):
 @pytest.mark.parametrize("enable", [
     _gi, _denoiser, _gi_denoiser, _reflections, _refraction, _mip_lod,
     _visualization, _raster_hud, _raster_background, _upscaler,
-    _resolution_scale, _motion_blur,
+    _resolution_scale, _motion_blur, _pipelined,
 ], ids=lambda f: f.__name__.strip("_"))
 def test_in_slice_features_render(enable):
     """GI, the GI denoiser, reflections, refraction, mip LOD, the debug
     views, the raster foreground and background, the upscaler, resolution
-    scaling and motion blur render: two frames, the second over the first
-    one's history. All but the denoiser alone change the frame."""
+    scaling, motion blur and the pipelined present render: two frames,
+    the second over the first one's history (the pipelined view two
+    more, to fill its ring). All but the denoiser alone and the ring
+    change the frame; the ring presents the frame of two draws before."""
     dev, scene, view = _scene()
     dev.draw()
     plain = view.framebuffer().copy()
     enable(dev, scene, view)
-    dev.draw()
-    dev.draw()
+    drawn = []
+    for _ in range(4 if enable is _pipelined else 2):
+        dev.draw()
+        drawn.append(fg.present_rgb8(view._renderer._last.image).numpy())
     fb = view.framebuffer()
     assert fb.shape == plain.shape and fb[..., :3].std() > 1.0
     hist_len = view._renderer._last.indirect_accum[3]
     wants_history = view.desc.gi_samples > 0 and view.desc.denoiser_enabled
     assert bool(hist_len.max() > 1.5) == wants_history
-    if enable is not _denoiser:
+    if enable is _pipelined:
+        assert np.array_equal(fb[..., :3], drawn[-3])
+    elif enable is not _denoiser:
         assert (fb != plain).any()  # the feature shows in the frame

@@ -1,0 +1,249 @@
+"""Row tiling in the port (parallel/tiling.py and render_frame's
+row_offset) against the JAX package and against the port's whole frame,
+on the CPU.
+
+- shard_config gives the JAX package's band fields (rows, display rows,
+  full_height, grid_height, display_grid_height, tiling).
+- Each band of the glass sample (64x32, gi 1, two reflection bounces,
+  boost 16), rendered with render_frame(row_offset=) from the JAX
+  package's packed scene, equals the JAX package's band (its
+  render_frame called directly, no mesh): RGB8 and instance planes equal
+  (the bound of the port's frame tests at 64 wide; measured: equal). The
+  camera is still: the JAX package scales a band's flow by the band's
+  rows (ROADMAP queue 3).
+- sharded_render in 2, 4 and 8 bands equals the port's whole frame with
+  the denoiser off (the JAX package's tests/test_parallel.py bounds: mean
+  abs < 1e-6, max abs < 1e-4, instance planes equal): the glass sample
+  and the castle at 128x64 (measured: equal bit for bit).
+- 128x40 in two untiled bands of 20 rows while the whole frame is tiled,
+  3 frames with the denoiser (GI reprojection on): the same bounds on
+  the rows farther than gi_filter_passes from the band edge, whose GI
+  filter sees only its band.
+- Raster layers (a background triangle instead of the sky plane, and a
+  HUD triangle) in 2 and 4 bands equal the whole frame.
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from rt64tpu.parallel import tiling as jtiling
+from rt64tpu.pipeline import framegraph as jfg
+from rt64tpu.utils.testscenes import build_sample_scene as jax_sample
+
+from rt64tpu_torch.convert import global_params_from_numpy, scene_buffers_from_numpy
+from rt64tpu_torch.ops import bluenoise
+from rt64tpu_torch.parallel import tiling
+from rt64tpu_torch.pipeline import framegraph as pfg
+from rt64tpu_torch.utils.castle_scene import build_castle_scene as port_castle
+from rt64tpu_torch.utils.testscenes import build_sample_scene as port_sample
+from rt64tpu_torch.utils.testscenes import hud_triangle
+
+MEAN_TOL, MAX_TOL = 1e-6, 1e-4
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    """The suite runs several workers side by side, and the torch work
+    here is many tiny eager ops: one intra-op thread is the fastest. The
+    worker's setting comes back when this file is done."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+def _cfg_to_port(cfg):
+    return pfg.RenderConfig(**{
+        f.name: getattr(cfg, f.name) for f in dataclasses.fields(pfg.RenderConfig)})
+
+
+@pytest.mark.parametrize("size,bands", [((64, 32), 2), ((64, 32), 8),
+                                        ((1280, 720), 4), ((128, 40), 2)])
+def test_shard_config_matches(size, bands):
+    w, h = size
+    jcfg = jfg.RenderConfig(rt_width=w, rt_height=h, display_width=w,
+                            display_height=h)
+    pcfg = pfg.RenderConfig(rt_width=w, rt_height=h, display_width=w,
+                            display_height=h)
+    jb, pb = jtiling.shard_config(jcfg, bands), tiling.shard_config(pcfg, bands)
+    for name in ("rt_width", "rt_height", "display_width", "display_height",
+                 "full_height", "grid_height", "display_grid_height", "tiled"):
+        assert getattr(pb, name) == getattr(jb, name), name
+    assert (pcfg.grid_height, pcfg.display_grid_height) == (h, h)
+
+
+def test_shard_config_refusals():
+    cfg = pfg.RenderConfig(rt_width=64, rt_height=30, display_width=64,
+                           display_height=30)
+    with pytest.raises(ValueError, match="do not divide"):
+        tiling.shard_config(cfg, 4)
+    with pytest.raises(ValueError, match="a band already"):
+        tiling.shard_config(tiling.shard_config(cfg, 2), 3)
+
+
+def _glass(make, **kw):
+    dev, scene, view = make(width=64, height=32, gi_samples=1,
+                               with_glass=True, **kw)
+    view.max_reflections = 2
+    return dev, scene, view
+
+
+@pytest.fixture(scope="module")
+def jax_bands():
+    """The JAX package's glass sample packed once; its two bands through
+    its own render_frame(row_offset=), and the same inputs for the port."""
+    _, _, view = _glass(jax_sample)
+    view.update()
+    r = view._renderer
+    cfg = dataclasses.replace(r._config(), alpha_shade_boost=16)
+    gp = r._global_params(cfg)
+    hist = jfg.History.zeros(cfg.rt_height, cfg.rt_width)
+    bg = r._background_planes(cfg)
+    band = jtiling.shard_config(cfg, 2)
+    fn = jax.jit(lambda sb, gp, h, bn, bg, off: jfg.render_frame(
+        sb, gp, h, bn, bg, cfg=band, row_offset=off))
+    outs = []
+    for b in range(2):
+        o = fn(r._sb, gp, hist, r.bn_table, bg, jnp.int32(b * band.rt_height))
+        assert int(o.alpha_dropped) == 0
+        outs.append((np.asarray(o.image),
+                     np.asarray(jfg.to_image(band, o.gbuffers.instance))))
+    sb = r._sb
+    port_in = dict(
+        sb=scene_buffers_from_numpy(
+            {f: (None if getattr(sb, f) is None else np.asarray(getattr(sb, f)))
+             for f in sb._fields if f != "features"}, sb.features, "cpu"),
+        gp=global_params_from_numpy(
+            {f: np.asarray(getattr(gp, f)) for f in pfg.GlobalParams._fields},
+            "cpu"),
+        cfg=_cfg_to_port(cfg))
+    return outs, port_in
+
+
+@pytest.mark.parametrize("b", [0, 1])
+def test_band_matches_jax(jax_bands, b):
+    outs, inp = jax_bands
+    cfg = inp["cfg"]
+    band = tiling.shard_config(cfg, 2)
+    bn = torch.from_numpy(bluenoise.packed_table())
+    pout = pfg.render_frame(inp["sb"], inp["gp"],
+                            pfg.History.zeros(cfg.rt_height, cfg.rt_width, "cpu"),
+                            bn, band, row_offset=b * band.rt_height)
+    assert int(pout.alpha_dropped) == 0
+    j_img, j_inst = outs[b]
+    np.testing.assert_array_equal(
+        pfg.present_rgb8(pout.image).numpy(),
+        pfg.present_rgb8(torch.from_numpy(j_img)).numpy())
+    np.testing.assert_array_equal(
+        pfg.to_image(band, pout.gbuffers.instance).numpy(), j_inst)
+
+
+def _frame_inputs(view):
+    r = view._renderer
+    cfg = r._last_cfg
+    return r, cfg, r._global_params(cfg), r._background_planes(cfg)
+
+
+def _compare(cfg, n, whole, banded, keep_rows=None):
+    keep = (slice(None) if keep_rows is None else keep_rows)
+    diff = (whole.image - banded.image).abs()[:, keep]
+    assert float(diff.mean()) < MEAN_TOL
+    assert float(diff.max()) < MAX_TOL
+    torch.testing.assert_close(
+        tiling.to_image_banded(cfg, n, banded.gbuffers.instance),
+        pfg.to_image(cfg, whole.gbuffers.instance), rtol=0, atol=0)
+    assert int(whole.alpha_dropped) == int(banded.alpha_dropped) == 0
+
+
+def _glass_port():
+    dev, _, view = _glass(port_sample, device="cpu")
+    return dev, view
+
+
+def _castle_port():
+    dev, _, view = port_castle(128, 64, di_samples=1, gi_samples=1,
+                               foliage=12, device="cpu")
+    view.max_reflections = 0
+    return dev, view
+
+
+SCENES = {"glass": _glass_port, "castle": _castle_port}
+
+
+@pytest.fixture(scope="module", params=sorted(SCENES))
+def whole_frame(request):
+    dev, view = SCENES[request.param]()
+    dev.draw()  # settles the alpha boost
+    r, cfg, gp, bg = _frame_inputs(view)
+    hist = pfg.History.zeros(cfg.rt_height, cfg.rt_width, "cpu")
+    whole = pfg.render_frame(r._sb, gp, hist, r.bn_table, cfg, bg_planes=bg)
+    return request.param, r, cfg, gp, bg, hist, whole
+
+
+@pytest.mark.parametrize("n", [2, 4, 8])
+def test_sharded_matches_whole(whole_frame, n):
+    _, r, cfg, gp, bg, hist, whole = whole_frame
+    banded = tiling.sharded_render(cfg, n)(r._sb, gp, hist, r.bn_table, bg)
+    assert banded.image.shape == whole.image.shape
+    assert banded.history.direct.shape == whole.history.direct.shape
+    _compare(cfg, n, whole, banded)
+
+
+def test_banded_history_with_reprojection():
+    """The whole frame tiled, its two bands not: each side's history is
+    self-consistent, and images compare through to_image."""
+    dev, _, view = port_sample(128, 40, gi_samples=1, denoiser=True,
+                               device="cpu")
+    dev.draw()
+    r, cfg, gp, bg = _frame_inputs(view)
+    band = tiling.shard_config(cfg, 2)
+    assert cfg.tiled and not band.tiled
+    assert bool(gp.gi_reproject)
+    fn = tiling.sharded_render(cfg, 2)
+    keep = torch.ones(cfg.rt_height, dtype=torch.bool)
+    keep[band.rt_height - cfg.gi_filter_passes:
+         band.rt_height + cfg.gi_filter_passes] = False
+    h_whole = h_band = pfg.History.zeros(cfg.rt_height, cfg.rt_width, "cpu")
+    for f in range(3):
+        gp_f = gp._replace(frame_count=torch.tensor(f))
+        whole = pfg.render_frame(r._sb, gp_f, h_whole, r.bn_table, cfg,
+                                 bg_planes=bg)
+        banded = fn(r._sb, gp_f, h_band, r.bn_table, bg)
+        h_whole, h_band = whole.history, banded.history
+        _compare(cfg, 2, whole, banded, keep_rows=keep)
+    assert float(whole.indirect_accum[3].max()) > 1.5  # reprojected
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_banded_raster_layers(n):
+    dev, scene, view = port_sample(64, 32, gi_samples=1, device="cpu")
+    view.max_reflections = 0
+    view.set_sky_plane(None)
+    hud_triangle(scene, dev, background=True)
+    hud_triangle(scene, dev)
+    dev.draw()
+    r, cfg, gp, bg = _frame_inputs(view)
+    assert r._sb.features.has_raster_bg and r._sb.raster_fg.shape[0]
+    hist = pfg.History.zeros(cfg.rt_height, cfg.rt_width, "cpu")
+    whole = pfg.render_frame(r._sb, gp, hist, r.bn_table, cfg, bg_planes=bg)
+    banded = tiling.sharded_render(cfg, n)(r._sb, gp, hist, r.bn_table, bg)
+    _compare(cfg, n, whole, banded)
+
+
+def test_several_devices_raise():
+    cfg = pfg.RenderConfig(rt_width=64, rt_height=32, display_width=64,
+                           display_height=32)
+    hist = pfg.History.zeros(32, 64, "cpu")
+    fn = tiling.sharded_render(cfg, 2, devices=["cpu", "cpu"])
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
+        fn(None, None, hist, None, None)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tiling.replicate_history(hist, ["cpu", "cpu"])
+    same = tiling.replicate_history(hist, ["cpu"])
+    assert all(torch.equal(a, b) for a, b in zip(same, hist))
