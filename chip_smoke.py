@@ -117,7 +117,30 @@ result line):
      on even checkerboard squares stay; "dump" writes a PNG that reads
      back as the framebuffer; an edit and "camera rotate" change the next
      draw;
-then the kernel table line and the result line.
+ 19. abi: librt64tpu_torch.so and both sample hosts built with g++
+     (rt64tpu_torch/abi/build.py); each host run in a subprocess on the
+     card at 320x240 (exit 0, a PPM; sample_host picks the sphere,
+     sample_host_dl binds through RT64TPU_LIBRARY); each PPM against its
+     calls replayed in Python through the port's bridge with every draw
+     made through the library's RT64_DrawDevice, SSIM >= 0.99 (max abs
+     difference and byte equality printed), K1/K2 launched in those
+     draws, RT64_GetLastError empty; the ms of each draw through the ABI
+     and through Device.draw(); the SSIM against the JAX package's
+     checked-in sample_host.ppm (printed only);
+ 20. dds: a BC1, a BC2 and a BC3 texture of random blocks (a seed, numpy)
+     decoded on the host, on the sample scene's sphere at 160x120, two
+     draws card against CPU at SSIM >= 0.99;
+ 21. train: the upscaler trainer's render_pairs at 96x128 -> 192x256,
+     2 pairs each of the sample, the castle and the castle with GI on the
+     card (K1/K2 launches counted), 50 steps of a fresh net: the loss
+     finite and lower at step 49 than at step 0, the step-0 loss card
+     against CPU within 1e-5; ms per step, held-out SSIM of the net, the
+     bilinear upscale and the shipped weights; weights written under
+     build/;
+ 22. bench: python3 -m rt64tpu_torch.bench --config 1 (8 frames, 2 reps):
+     its JSON line parses with bench.py's keys and the card's name;
+then the kernel table line and the result line. Phases 15 and 17 drive
+the loops of rt64tpu_torch.bench (StreamedLoop, native_banded).
 
 It imports torch, numpy and rt64tpu_torch only.
 """
@@ -1357,39 +1380,6 @@ STREAM_PROFILED = 4
 STREAM_SYNCS_SAVED_MIN = 2
 
 
-class StreamedScene:
-    """bench config 4 and bench.py's push(f): instance 1 turns by 0.03 f
-    radians about y (with its previous transform), the camera is pushed
-    again, then Device.draw()."""
-
-    def __init__(self):
-        import numpy as np
-        from rt64tpu_torch import descriptors as d
-        from rt64tpu_torch.utils.castle_scene import build_castle_scene
-
-        w, h = BENCH_UPSCALED[4][0]
-        self.dev, self.scene, self.view = build_castle_scene(
-            w, h, di_samples=1, gi_samples=1)
-        self.view.max_reflections = REFL_BOUNCES
-        self.view.desc.upscaler = d.UPSCALER_FSR
-        self.view.desc.upscaler_mode = d.UPSCALER_MODE_AUTO
-        self.inst = self.scene.instances[min(1, len(self.scene.instances) - 1)]
-        tf = self.inst.desc.transform
-        self.base_tf = (np.eye(4, dtype=np.float32) if tf is None
-                        else np.asarray(tf, np.float32).reshape(4, 4))
-
-    def push(self, f):
-        from rt64tpu_torch.ops import math3d
-
-        de, view = self.inst.desc, self.view
-        de.previous_transform = de.transform
-        de.transform = math3d.rotation_y(0.03 * f) @ self.base_tf
-        self.inst.set_description(de)
-        view.set_perspective(view.view_matrix, view.fov_radians,
-                             view.near_dist, view.far_dist, True)
-        self.dev.draw()
-
-
 def count_syncs(fn):
     """(fn(), {"file:line": count} of the synchronizing CUDA calls it
     made), as torch's sync-debug mode reports them."""
@@ -1419,10 +1409,13 @@ def phase_streamed():
 
     import numpy as np
     import torch
+    from rt64tpu_torch import bench
     from rt64tpu_torch.ops import tracer_cuda as tc
     from rt64tpu_torch.pipeline import framegraph as fg
 
-    st = StreamedScene()
+    # bench config 4 driven by bench.py's push(f): instance 1 turns by
+    # 0.03 f radians about y, the camera is pushed again, Device.draw().
+    st = bench.StreamedLoop(*bench.build(*bench.CONFIGS[4]))
     for f in range(STREAM_FRAMES):
         st.push(f)
     r = st.view._renderer
@@ -1621,7 +1614,6 @@ BAND_MEAN_TOL = 1e-6
 BAND_MAX_TOL = 1e-4
 # Bench config 5's native reference, as bench.py's measure_ssim draws it,
 # with 4 frames a side where bench.py has 8 (the run's time limit).
-BENCH5_W, BENCH5_H = 3840, 2160
 NATIVE_BANDS = 4
 NATIVE_BANDS_IF_OOM = 6
 NATIVE_FRAMES = 4
@@ -1637,11 +1629,11 @@ def render_timed(fn):
     return out, ms, torch.cuda.max_memory_allocated()
 
 
-def banded_frame(render, *args, capture_band=None):
-    """render(*args) for a tiling.sharded_render fn, with each band's
-    render_frame call timed (CUDA events) and its peak memory read:
-    (FrameOutputs of the whole frame, band ms, band peaks, the K1 and K2
-    launches recorded in band `capture_band`, each kind's largest only,
+def banded_frame(fn, capture_band=None):
+    """fn() (a banded draw through tiling.sharded_render), with each band's
+    render_frame call timed (CUDA events) and its peak memory read: (fn's
+    result, band ms, band peaks, the K1 and K2 launches recorded in band
+    `capture_band` (counted across fn's bands), each kind's largest only,
     or {})."""
     from rt64tpu_torch.pipeline import framegraph as fg
 
@@ -1666,7 +1658,7 @@ def banded_frame(render, *args, capture_band=None):
 
     fg.render_frame = band
     try:
-        out = render(*args)
+        out = fn()
     finally:
         fg.render_frame = original
     return out, ms, peaks, seen
@@ -1716,7 +1708,7 @@ def phase_banded_castle():
             for f in range(BAND_FRAMES):
                 gp = gp0._replace(frame_count=torch.tensor(f, device="cuda"))
                 out, band_ms, band_peak, _ = banded_frame(
-                    render, r._sb, gp, hist, r.bn_table, bg)
+                    lambda: render(r._sb, gp, hist, r.bn_table, bg))
                 hist = out.history
                 inst = tiling.to_image_banded(cfg, n, out.gbuffers.instance)
                 w_img, w_inst, w_drop = whole[f]
@@ -1752,29 +1744,20 @@ def phase_banded_castle():
 
 
 def phase_bench5_fidelity():
-    """bench.py measure_ssim on bench config 5: the DLSS performance frame
-    after NATIVE_FRAMES draws against the native 3840x2160 frame drawn
-    through sharded_render in bands of 3840x540, NATIVE_FRAMES frames
-    with the history concatenated across the bands, SSIM of the uint8
-    images. The K1 and K2 launches of the first frame's first band are
-    then held against their plain twins: (row, {"k1": row, "k2": row})."""
+    """bench.py measure_ssim on bench config 5, through rt64tpu_torch.bench:
+    the DLSS performance frame after NATIVE_FRAMES draws against the
+    native 3840x2160 frame of bench.native_banded (bands of 3840x540,
+    NATIVE_FRAMES frames, the history concatenated across the bands, at
+    alpha boost 1), SSIM of the uint8 images. The K1 and K2 launches of
+    the first frame's first band are then held against their plain
+    twins: (row, {"k1": row, "k2": row})."""
     import torch
-    from rt64tpu_torch import descriptors as d
-    from rt64tpu_torch.parallel import tiling
-    from rt64tpu_torch.pipeline import framegraph as fg
-    from rt64tpu_torch.utils.castle_scene import build_castle_scene
+    from rt64tpu_torch import bench
     from rt64tpu_torch.utils.ssim import ssim
 
-    w, h = BENCH5_W, BENCH5_H
-
-    def build(upscaler, mode):
-        dev, _, view = build_castle_scene(w, h, di_samples=1, gi_samples=1)
-        view.max_reflections = REFL_BOUNCES
-        view.desc.upscaler, view.desc.upscaler_mode = upscaler, mode
-        view.update()
-        return dev, view
-
-    dev, view = build(d.UPSCALER_DLSS, d.UPSCALER_MODE_PERFORMANCE)
+    rung = bench.CONFIGS[5]
+    w, h = rung[1], rung[2]
+    dev, _, view = bench.build(*rung)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for _ in range(NATIVE_FRAMES):
@@ -1787,32 +1770,13 @@ def phase_bench5_fidelity():
     del dev, view, cfg
     torch.cuda.empty_cache()
 
-    dev, view = build(d.UPSCALER_OFF, d.UPSCALER_MODE_AUTO)
-    r = view._renderer
-    cfg = r._config()
-    bg = r._background_planes(cfg)
-    gp0 = r._global_params(cfg)
-    failed = None
-
     def native(bands):
-        render = tiling.sharded_render(cfg, bands)
-        hist = fg.History.zeros(h, w, "cuda")
-        ms, peaks, drops = [], [], []
-        for f in range(NATIVE_FRAMES):
-            gp = gp0._replace(frame_count=torch.tensor(f, device="cuda"))
-            out, t, p, found = banded_frame(
-                render, r._sb, gp, hist, r.bn_table, bg,
-                capture_band=0 if f == 0 else None)
-            if f == 0:
-                seen = found
-            hist = out.history
-            drops.append(int(out.alpha_dropped))
-            image = fg.present_rgb8(out.image)
-            ms += t
-            peaks += p
-            del out
-        return image.cpu().numpy(), ms, peaks, drops, seen
+        (image, drops), ms, peaks, seen = banded_frame(
+            lambda: bench.native_banded(*rung[:6], bands, NATIVE_FRAMES),
+            capture_band=0)
+        return image, ms, peaks, drops, seen
 
+    failed = None
     try:
         bands = NATIVE_BANDS
         native_img, ms, peaks, drops, seen = native(bands)
@@ -1829,14 +1793,13 @@ def phase_bench5_fidelity():
                dlss_seconds_per_frame=dlss_s / NATIVE_FRAMES,
                dlss_peak=dlss_peak, band_ms_median=statistics.median(ms),
                band_ms=ms, band_peak_max=max(peaks),
-               native_alpha_dropped=drops, alpha_boost=r.alpha_boost,
+               native_alpha_dropped=drops,
                prod_max=int(prod.max()), native_max=int(native_img.max()))
     emit(row)
     check(prod.shape == native_img.shape == (h, w, 3),
           f"bench5 frames {prod.shape} {native_img.shape}")
     check(row["prod_max"] > 0 and row["native_max"] > 0,
           "a bench5 fidelity frame is black")
-    del dev, view, r
     torch.cuda.empty_cache()
     return row, kernels_on_largest("native_band", seen)
 
@@ -1945,6 +1908,275 @@ def phase_inspector():
     check(replies == ["OK", "OK", "OK", "OK", "OK", "0.5", "OK"],
           f"inspector replies {replies}")
     check(row["next_draw_differs"], "the edits did not change the next draw")
+    return row
+
+
+# Phase abi: the sample hosts at the size they draw by default.
+ABI_W, ABI_H = 320, 240
+ABI_SSIM_MIN = 0.99
+JAX_SAMPLE_PPM = "rt64tpu/abi/sample_host.ppm"
+
+
+def phase_abi():
+    """The C ABI on the card: librt64tpu_torch.so and both sample hosts
+    built with g++ (abi/build.py), each host run in a subprocess at
+    320x240 on the card; each PPM held against the same calls replayed in
+    Python through the port's bridge, in this process, with every
+    DrawDevice made through the library's RT64_DrawDevice (loaded with
+    ctypes: the shim finds this interpreter running and forwards to the
+    same bridge), the launch counts set to 0 just before and read just
+    after; then the same replays in turns with each draw a direct
+    Device.draw(), through the ABI, and direct again, for the ms of each
+    draw both ways (host clock; a draw ends in its present readback).
+    The SSIM against the JAX package's checked-in sample_host.ppm (origin
+    not recorded) is printed."""
+    import ctypes
+    import os
+
+    import numpy as np
+    from rt64tpu_torch.abi import bridge, hosts
+    from rt64tpu_torch.abi import build as abi_build
+    from rt64tpu_torch.ops import tracer_cuda as tc
+    from rt64tpu_torch.utils.assets import read_ppm
+    from rt64tpu_torch.utils.ssim import ssim
+
+    t0 = time.perf_counter()
+    built = abi_build.build()
+    build_s = time.perf_counter() - t0
+    os.environ.pop(bridge.DEVICE_ENV, None)  # the hosts draw on the card
+    runs = {}
+    for name, env in (("sample_host", {}),
+                      ("sample_host_dl", {"RT64TPU_LIBRARY": built.library})):
+        ppm = os.path.join(built.directory, f"{name}.ppm")
+        if os.path.exists(ppm):
+            os.remove(ppm)
+        t0 = time.perf_counter()
+        run = abi_build.run_host(getattr(built, name), ppm, ABI_W, ABI_H, env)
+        runs[name] = dict(rc=run.returncode, seconds=time.perf_counter() - t0,
+                          stdout=run.stdout.strip().splitlines(),
+                          stderr_tail=run.stderr[-2000:])
+        check(run.returncode == 0,
+              f"{name} exited {run.returncode}: {run.stderr[-2000:]}")
+        check(os.path.exists(ppm), f"{name} wrote no PPM")
+        runs[name]["ppm"] = read_ppm(ppm)
+    check("picked instance at center: sphere" in runs["sample_host"]["stdout"],
+          f"sample_host picked {runs['sample_host']['stdout']}")
+
+    lib = ctypes.CDLL(built.library)
+    lib.RT64_DrawDevice.argtypes = [ctypes.c_void_p, ctypes.c_int, ctypes.c_float]
+    lib.RT64_DrawDevice.restype = None
+    lib.RT64_GetLastError.restype = ctypes.c_char_p
+
+    def timed_draw(fn, ms):
+        def draw(device):
+            t0 = time.perf_counter()
+            fn(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return draw
+
+    draws = dict(
+        abi=lambda dev: lib.RT64_DrawDevice(dev, 1, hosts.DELTA_MS),
+        device=lambda dev: bridge._get(dev).draw(1, float(hosts.DELTA_MS)))
+    ms = {name: {way: [] for way in draws} for name in ("sample_host",
+                                                        "sample_host_dl")}
+    saved = {k: os.environ.get(k) for k in ("RT64TPU_VIEW_WIDTH",
+                                            "RT64TPU_VIEW_HEIGHT")}
+    os.environ.update(RT64TPU_VIEW_WIDTH=str(ABI_W), RT64TPU_VIEW_HEIGHT=str(ABI_H))
+    try:
+        # The replays held against the hosts, through the C ABI, counted.
+        tc.launch_counts.reset()
+        replay, pick = hosts.sample_host(bridge, draw=timed_draw(
+            draws["abi"], ms["sample_host"]["abi"]))
+        counts = {"sample_host": dict(vars(tc.launch_counts))}
+        tc.launch_counts.reset()
+        replay_dl = hosts.sample_host_dl(bridge, draw=timed_draw(
+            draws["abi"], ms["sample_host_dl"]["abi"]))
+        counts["sample_host_dl"] = dict(vars(tc.launch_counts))
+        error = lib.RT64_GetLastError().decode()
+        # Then in turns, warm: Device.draw(), the ABI, Device.draw().
+        for way in ("device", "abi", "device"):
+            hosts.sample_host(bridge, draw=timed_draw(
+                draws[way], ms["sample_host"][way]))
+            hosts.sample_host_dl(bridge, draw=timed_draw(
+                draws[way], ms["sample_host_dl"][way]))
+    finally:
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    frames = {"sample_host": replay[..., :3], "sample_host_dl": replay_dl[..., :3]}
+    row = dict(phase="abi", width=ABI_W, height=ABI_H, build_seconds=build_s,
+               library=built.library, rt64_last_error=error, pick=pick,
+               launches=counts, draw_ms=ms)
+    for name, frame in frames.items():
+        ppm = runs[name].pop("ppm")
+        runs[name].update(
+            ssim_vs_replay=ssim(ppm, frame),
+            max_abs_vs_replay=int(np.abs(ppm.astype(int) - frame).max()),
+            equal_to_replay=bool(np.array_equal(ppm, frame)))
+        if name == "sample_host":
+            jax_ppm = read_ppm(JAX_SAMPLE_PPM)
+            runs[name]["ssim_vs_jax_ppm"] = ssim(ppm, jax_ppm)
+    row["hosts"] = runs
+    emit(row)
+    check(error == "", f"the C ABI reported: {error}")
+    check(pick == "sphere", f"the replay picked {pick}")
+    for name, run in runs.items():
+        check(run["ssim_vs_replay"] >= ABI_SSIM_MIN,
+              f"{name}: SSIM {run['ssim_vs_replay']} against its replay")
+        c, frames = counts[name], (3 if name == "sample_host" else 1)
+        check(c["opaque_launches"] >= frames and c["shadow_launches"] >= frames,
+              f"{name} through the C ABI launched K1/K2 {c}")
+    return row
+
+
+DDS_W, DDS_H = 160, 120
+DDS_FORMATS = ((b"DXT1", False), (b"DXT3", None), (b"DXT5", None))
+
+
+def phase_dds():
+    """A BC1 (opaque blocks), a BC2 and a BC3 texture of random blocks made
+    from a seed with numpy, decoded on the host, on the sample scene's
+    sphere at 160x120 (no GI, no reflections): two draws on the card
+    against the CPU, SSIM >= 0.99."""
+    from rt64tpu_torch.utils.assets import decode_dds
+    from rt64tpu_torch.utils.testscenes import (build_sample_scene,
+                                                dds_file, dds_texture)
+
+    rows = []
+    for seed, (fourcc, punch) in enumerate(DDS_FORMATS):
+        data = dds_file(fourcc, 256, 256, seed, punch)
+        t0 = time.perf_counter()
+        decode_dds(data)
+        decode_ms = (time.perf_counter() - t0) * 1e3
+
+        def textured(where):
+            dev, scene, view = build_sample_scene(DDS_W, DDS_H, gi_samples=0,
+                                                  device=where)
+            view.max_reflections = 0
+            sphere = scene.instances[0]
+            sphere.desc.diffuse_texture = dds_texture(dev, fourcc, 256, seed,
+                                                      punch)
+            sphere.set_description(sphere.desc)
+            return dev, scene, view
+
+        s, counts, seconds = card_vs_cpu(textured, 2)
+        row = dict(phase="dds", format=fourcc.decode(), size=256,
+                   decode_ms_256=decode_ms, width=DDS_W, height=DDS_H,
+                   ssim=s, seconds=seconds, **counts)
+        emit(row)
+        rows.append(row)
+        check(s >= 0.99, f"{fourcc.decode()} texture SSIM card vs CPU {s} < 0.99")
+        check(counts["opaque_launches"] >= 2 and counts["shadow_launches"] >= 2,
+              f"the {fourcc.decode()} frames launched K1/K2 {counts}")
+    return rows
+
+
+# Phase train: the JAX trainer's sizes, 2 pairs of each scene kind.
+TRAIN_PAIRS = 2
+TRAIN_STEPS = 50
+TRAIN_LOSS_TOL = 1e-5  # card against CPU at step 0 (the CPU test's)
+
+
+def phase_train():
+    """The upscaler trainer on the card: render_pairs at lo 96x128, hi
+    192x256, TRAIN_PAIRS each of the sample scene, the castle and the
+    castle with GI (the launch counts set to 0 just before and read just
+    after), the last pair of each kind held out; a fresh net, the step-0
+    loss on the card against the CPU from the same weights; TRAIN_STEPS
+    steps (ms per step between CUDA events); held-out SSIM of the net,
+    the bilinear upscale and the shipped weights. The weights are written
+    under build/."""
+    import os
+
+    import numpy as np
+    import torch
+    from rt64tpu_torch.models import learned_upscaler as lu
+    from rt64tpu_torch.models import train_upscaler as tr
+    from rt64tpu_torch.ops import tracer_cuda as tc
+
+    tc.launch_counts.reset()
+    t0 = time.perf_counter()
+    batch, kinds = tr.corpus(TRAIN_PAIRS, device="cuda")
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    counts = dict(vars(tc.launch_counts))
+    heldout = tr.hold_out(batch, kinds)
+    dh, dw = batch[0][1].shape[1:]
+    lo = batch[0][0]["rt_color"].shape[1:]
+
+    net = tr.fresh_net(0, "cuda")
+    cpu_net = tr.fresh_net(0, "cpu")
+    stacked, targets = tr.stack_batch(batch, "cuda")
+    with torch.no_grad():
+        cpu_loss0 = float(tr.loss_fn(cpu_net, *tr.stack_batch(batch, "cpu"),
+                                     dh, dw))
+    opt = tr.make_optimizer(net, 1e-3)
+    schedule = tr.cosine_decay(1e-3, TRAIN_STEPS)
+    losses = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for step in range(TRAIN_STEPS):
+        losses.append(tr.train_step(net, opt, schedule(step), stacked, targets,
+                                    dh, dw))
+    end.record()
+    torch.cuda.synchronize()
+    losses = [float(v) for v in losses]
+    s_net, s_bil = tr.evaluate(net, heldout, dh, dw, "cuda")
+    s_shipped, _ = tr.evaluate(lu.get_net(torch.device("cuda")), heldout, dh,
+                               dw, "cuda")
+    out = os.path.join("build", "train_upscaler", "params.npz")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    lu.save_params(out, net)
+    row = dict(phase="train", low=tuple(lo), high=(dh, dw), kinds=kinds,
+               train_pairs=len(batch), heldout_pairs=len(heldout),
+               render_seconds=render_s, steps=TRAIN_STEPS,
+               ms_per_step=start.elapsed_time(end) / TRAIN_STEPS,
+               loss_first=losses[0], loss_last=losses[-1],
+               loss_every_10=losses[::10], cpu_loss_step0=cpu_loss0,
+               heldout_ssim_net=s_net, heldout_ssim_bilinear=s_bil,
+               heldout_ssim_shipped=s_shipped, weights=out, **counts)
+    emit(row)
+    check(tuple(lo) == (96, 128) and (dh, dw) == (192, 256),
+          f"training pairs {lo} -> {(dh, dw)}")
+    check(all(np.isfinite(losses)), f"a training loss is not finite: {losses}")
+    check(losses[-1] < losses[0], f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    check(abs(losses[0] - cpu_loss0) <= TRAIN_LOSS_TOL,
+          f"step-0 loss card {losses[0]} CPU {cpu_loss0}")
+    check(counts["opaque_launches"] >= 2 * 3 * TRAIN_PAIRS
+          and counts["shadow_launches"] >= 2 * 3 * TRAIN_PAIRS,
+          f"render_pairs launched K1/K2 {counts}")
+    return row
+
+
+def phase_bench():
+    """python3 -m rt64tpu_torch.bench --config 1 with few frames: its JSON
+    line must parse and carry bench.py's keys and the card."""
+    import contextlib
+    import io
+
+    from rt64tpu_torch import bench
+    from rt64tpu_torch.ops import tracer_cuda as tc
+
+    out = io.StringIO()
+    tc.launch_counts.reset()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        bench.main(["--config", "1", "--frames", "8", "--reps", "2"])
+    seconds = time.perf_counter() - t0
+    lines = out.getvalue().strip().splitlines()
+    line = json.loads(lines[-1])
+    row = dict(phase="bench", config=1, seconds=seconds, line=line,
+               **vars(tc.launch_counts))
+    emit(row)
+    check(len(lines) == 1, f"the bench printed {len(lines)} lines")
+    check({"metric", "value", "unit", "vs_baseline", "card"} <= set(line)
+          and line["value"] > 0 and line["unit"] == "frames/sec",
+          f"the bench line {line}")
+    check(row["opaque_launches"] >= 8 and row["shadow_launches"] >= 8,
+          f"the bench launched K1/K2 {vars(tc.launch_counts)}")
     return row
 
 
@@ -2071,6 +2303,13 @@ def run():
     _, banded_counts = phase_banded_castle()
     _, k_native = phase_bench5_fidelity()
     phase_inspector()
+
+    # 19. the C ABI: both sample hosts on the card; 20. DDS textures;
+    # 21. the upscaler trainer; 22. the bench module
+    abi = phase_abi()
+    phase_dds()
+    train = phase_train()
+    phase_bench()
     for tag, rows in (("streamed", k_streamed), ("native_band", k_native)):
         k1[tag], k2[tag] = rows["k1"], rows["k2"]
 
@@ -2085,8 +2324,10 @@ def run():
     # K1 and K2 also carry their launches in the 10 castle-raster frames,
     # as raster_launches, in the frames of each upscaled bench config, as
     # upscaled_launches, in the timed frames of each mode of the streamed
-    # loop, as streamed_launches, and in each banded run of the castle GI
-    # frame (denoiser off and on, 2 and 4 bands), as banded_launches.
+    # loop, as streamed_launches, in each banded run of the castle GI
+    # frame (denoiser off and on, 2 and 4 bands), as banded_launches, in
+    # each sample host's calls made through the C ABI, as abi_launches, and
+    # in the trainer's render_pairs, as train_launches.
     # K1 and K2 also carry the numbers of their largest launches in one
     # streamed config-4 frame, as streamed_<key>, and in the first band
     # of bench config 5's native reference, as native_band_<key>.
@@ -2109,7 +2350,10 @@ def run():
                                   for n, row in upscaled.items()},
                streamed_launches={m: row["opaque_launches"]
                                   for m, row in streamed.items()},
-               banded_launches=band_launches(banded_counts, "opaque_launches")),
+               banded_launches=band_launches(banded_counts, "opaque_launches"),
+               abi_launches={h: c["opaque_launches"]
+                             for h, c in abi["launches"].items()},
+               train_launches=train["opaque_launches"]),
         kernel("trace_shadow_walk<WoopClusters> (K2)", "packet_tracer.cu",
                981, main["shadow_launches"], k2,
                raster_launches=raster["shadow_launches"],
@@ -2117,7 +2361,10 @@ def run():
                                   for n, row in upscaled.items()},
                streamed_launches={m: row["shadow_launches"]
                                   for m, row in streamed.items()},
-               banded_launches=band_launches(banded_counts, "shadow_launches")),
+               banded_launches=band_launches(banded_counts, "shadow_launches"),
+               abi_launches={h: c["shadow_launches"]
+                             for h, c in abi["launches"].items()},
+               train_launches=train["shadow_launches"]),
         kernel("trace_opaque_walk<MtClusters> (K3)", "mt_tracer.cu", 572,
                large["opaque_mt_launches"], k3,
                k3["reflection"]["launches_per_frame"]),

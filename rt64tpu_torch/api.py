@@ -180,8 +180,9 @@ class Mesh:
 class Texture:
     """RT64_CreateTexture (rt64_texture.cpp:207-233).
 
-    RGBA8 payloads are stored as (H, W, 4) uint8. Atlas placement
-    happens at scene assembly.
+    RGBA8 payloads are stored as (H, W, 4) uint8; DDS payloads are
+    BC-decompressed on the host on load (utils/assets.py, the
+    DDSTextureLoader analog). Atlas placement happens at scene assembly.
     """
 
     def __init__(self, device: Device, desc: d.TextureDesc):
@@ -197,10 +198,9 @@ class Texture:
             rows = data[: desc.height * row_pitch].reshape(desc.height, row_pitch)
             self.rgba = rows[:, : desc.width * 4].reshape(desc.height, desc.width, 4).copy()
         elif desc.format == d.TEXTURE_FORMAT_DDS:
-            raise NotImplementedError(
-                "DDS textures need the BC decoder of utils/assets.py, which "
-                "arrives with ROADMAP queue 1 item 16 (C ABI and drivers)"
-            )
+            from rt64tpu_torch.utils.assets import decode_dds
+
+            self.rgba = decode_dds(bytes(desc.bytes))
         else:
             raise ValueError(f"unknown texture format {desc.format}")
         self.width = self.rgba.shape[1]

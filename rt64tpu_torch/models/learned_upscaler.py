@@ -29,7 +29,10 @@ class UpscaleNet(nn.Module):
     with ReLU between them, the third dilated by 2. Everything runs in
     bf16 (input, weights, biases, activations), and each bias is added
     to the rounded convolution, as Flax's `nn.Conv(dtype=bfloat16)` does;
-    the output is cast to f32."""
+    the output is cast to f32. The weights are cast to bf16 inside the
+    forward, as Flax casts its f32 parameters at use: a net with f32
+    master weights trains as the JAX package's does, and the serving
+    net (get_net, bf16 weights) casts nothing."""
 
     def __init__(self, features: int = 32):
         super().__init__()
@@ -43,11 +46,12 @@ class UpscaleNet(nn.Module):
         ])
 
     def forward(self, x):  # x: (B, 7, H, W)
-        h = x.to(torch.bfloat16)
+        bf16 = torch.bfloat16
+        h = x.to(bf16)
         for i, conv in enumerate(self.convs):
             h = torch.nn.functional.conv2d(
-                h, conv.weight, None, conv.stride, conv.padding,
-                conv.dilation) + conv.bias[None, :, None, None]
+                h, conv.weight.to(bf16), None, conv.stride, conv.padding,
+                conv.dilation) + conv.bias.to(bf16)[None, :, None, None]
             if i < len(self.convs) - 1:
                 h = torch.relu(h)
         return h.to(torch.float32)
@@ -56,7 +60,8 @@ class UpscaleNet(nn.Module):
 def load_params(path: str = PARAMS_PATH):
     """The trained parameters as (weight OIHW, bias) pairs, f32 numpy.
     The file's keys 0000-0009 are Flax's sorted tree order: (bias,
-    kernel) of Conv_0 ... Conv_4, kernels HWIO."""
+    kernel) of Conv_0 ... Conv_4, kernels HWIO (a file of either package's
+    trainer)."""
     if not os.path.exists(path):
         raise FileNotFoundError(
             f"learned upscaler weights not found: {path}")
@@ -66,16 +71,33 @@ def load_params(path: str = PARAMS_PATH):
             for b, k in zip(keys[0::2], keys[1::2])]
 
 
-@functools.lru_cache(maxsize=None)
-def get_net(device) -> UpscaleNet:
-    """The network with the shipped weights, in bf16 on `device` (built
-    once per device)."""
-    net = UpscaleNet()
-    params = load_params()
+def save_params(path: str, net: UpscaleNet) -> None:
+    """Write the net's parameters in the JAX package's layout (what
+    load_params and the JAX package's get_params read): f32, Flax's
+    sorted keys 0000-0009, (bias, kernel) of each convolution, kernels
+    HWIO."""
+    flat = {}
+    for i, conv in enumerate(net.convs):
+        w = conv.weight.detach().float().cpu().numpy()
+        flat[f"{2 * i:04d}"] = conv.bias.detach().float().cpu().numpy()
+        flat[f"{2 * i + 1:04d}"] = np.ascontiguousarray(w.transpose(2, 3, 1, 0))
+    np.savez(path, **flat)
+
+
+def set_params(net: UpscaleNet, params) -> UpscaleNet:
+    """Copy load_params' (weight OIHW, bias) pairs into the net."""
     with torch.no_grad():
         for conv, (w, b) in zip(net.convs, params):
             conv.weight.copy_(torch.from_numpy(np.ascontiguousarray(w)))
             conv.bias.copy_(torch.from_numpy(b))
+    return net
+
+
+@functools.lru_cache(maxsize=None)
+def get_net(device) -> UpscaleNet:
+    """The network with the shipped weights, in bf16 on `device` (built
+    once per device)."""
+    net = set_params(UpscaleNet(), load_params())
     net.requires_grad_(False)
     return net.to(device=device, dtype=torch.bfloat16).eval()
 

@@ -1,5 +1,6 @@
 """Asset IO: PNG read and write, BMP write (the stb_image equivalent,
-rt64_texture.cpp:146-187; frame dumping, rt64_device.cpp:1156-1215).
+rt64_texture.cpp:146-187; frame dumping, rt64_device.cpp:1156-1215), and
+DDS decode (BC1/BC2/BC3, the DDSTextureLoader equivalent).
 
 Written on zlib, struct and numpy, so the port reads and writes images
 without an imaging library: it reads 8-bit RGB and RGBA, non-interlaced,
@@ -143,3 +144,174 @@ def write_bmp(path: str, rgba) -> None:
     os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
     with open(path, "wb") as f:
         f.write(header + info + pixels.tobytes())
+
+
+# --- DDS ------------------------------------------------------------------
+#
+# Decoded on the host in numpy, top mip only (mipmaps are disabled in the
+# reference, rt64_device.cpp:758-762). The block arithmetic is the JAX
+# package's, step for step, so both decode BC1-3 to the same bytes.
+
+_DDS_MAGIC = 0x20534444  # 'DDS '
+
+
+def decode_dds(data: bytes) -> np.ndarray:
+    """Decode a DDS file (BC1/BC2/BC3 aka DXT1/3/5, or raw RGBA8) to
+    (H, W, 4) uint8."""
+    magic, = struct.unpack_from("<I", data, 0)
+    if magic != _DDS_MAGIC:
+        raise ValueError("not a DDS file")
+    height, width = struct.unpack_from("<2I", data, 12)
+    pf_flags, fourcc = struct.unpack_from("<2I", data, 4 + 76)
+    # dwRGBBitCount and the four masks follow dwFourCC (the JAX package
+    # reads them 4 bytes late: ROADMAP queue 3).
+    rgb_bitcount, rmask, gmask, bmask, amask = struct.unpack_from(
+        "<5I", data, 4 + 84)
+    payload_off = 4 + 124
+    fourcc_s = struct.pack("<I", fourcc)
+    if fourcc_s == b"DX10":
+        dxgi_format, = struct.unpack_from("<I", data, payload_off)
+        payload_off += 20
+        fmt = {71: b"DXT1", 74: b"DXT3", 77: b"DXT5"}.get(dxgi_format)
+        if fmt is None:
+            raise ValueError(f"unsupported DX10 dxgi format {dxgi_format}")
+        fourcc_s = fmt
+    payload = np.frombuffer(data, np.uint8, offset=payload_off)
+    if pf_flags & 0x4:  # DDPF_FOURCC
+        if fourcc_s == b"DXT1":
+            return _decode_bc1(payload, width, height)
+        if fourcc_s in (b"DXT2", b"DXT3"):
+            return _decode_bc2(payload, width, height)
+        if fourcc_s in (b"DXT4", b"DXT5"):
+            return _decode_bc3(payload, width, height)
+        raise ValueError(f"unsupported DDS fourcc {fourcc_s!r}")
+    if rgb_bitcount == 32:
+        raw = payload[: width * height * 4].reshape(height, width, 4)
+        out = np.empty((height, width, 4), np.uint8)
+        for c, mask in enumerate((rmask, gmask, bmask)):
+            out[..., c] = raw[..., _mask_index(mask)]
+        out[..., 3] = raw[..., _mask_index(amask)] if amask else 255
+        return out
+    raise ValueError("unsupported uncompressed DDS layout")
+
+
+def _mask_index(mask: int) -> int:
+    return {0xFF: 0, 0xFF00: 1, 0xFF0000: 2, 0xFF000000: 3}.get(mask, 0)
+
+
+def _bc_color_palette(blocks: np.ndarray, bc1_punch: bool) -> np.ndarray:
+    """blocks: (B, 2) uint16 c0/c1 -> palette (B, 4, 4) uint8 rgba. BC1
+    blocks with c0 <= c1 take three colours and a transparent black."""
+    c0 = blocks[:, 0].astype(np.uint32)
+    c1 = blocks[:, 1].astype(np.uint32)
+
+    def expand(c):
+        r = ((c >> 11) & 0x1F).astype(np.float32) * (255.0 / 31.0)
+        g = ((c >> 5) & 0x3F).astype(np.float32) * (255.0 / 63.0)
+        b = (c & 0x1F).astype(np.float32) * (255.0 / 31.0)
+        return np.stack([r, g, b], -1)
+
+    p0 = expand(c0)
+    p1 = expand(c1)
+    four = ~(bc1_punch & (c0 <= c1))
+    p2 = np.where(four[:, None], (2 * p0 + p1) / 3.0, (p0 + p1) / 2.0)
+    p3 = np.where(four[:, None], (p0 + 2 * p1) / 3.0, 0.0)
+    pal = np.stack([p0, p1, p2, p3], axis=1)  # (B, 4, 3)
+    alpha = np.full(pal.shape[:2] + (1,), 255.0, np.float32)
+    if bc1_punch:
+        alpha[:, 3, 0] = np.where(four, 255.0, 0.0)
+    return np.concatenate([pal, alpha], -1).round().astype(np.uint8)
+
+
+def _bc_color_indices(rows: np.ndarray) -> np.ndarray:
+    """rows: (B, 4) uint8 -> (B, 16) 2-bit indices, texel r * 4 + c."""
+    shifts = np.arange(4, dtype=np.uint8) * 2
+    return ((rows[:, :, None] >> shifts) & 0x3).reshape(rows.shape[0], 16)
+
+
+def _assemble_blocks(texels: np.ndarray, width: int, height: int) -> np.ndarray:
+    """texels: (B, 16, 4) block texels -> (H, W, 4) image."""
+    bw = (width + 3) // 4
+    bh = (height + 3) // 4
+    img = texels.reshape(bh, bw, 4, 4, 4).transpose(0, 2, 1, 3, 4)
+    return np.ascontiguousarray(img.reshape(bh * 4, bw * 4, 4)[:height, :width])
+
+
+def _blocks(payload, width, height, block_bytes):
+    n = ((width + 3) // 4) * ((height + 3) // 4)
+    return payload[: n * block_bytes].reshape(n, block_bytes)
+
+
+def _colour_texels(raw, bc1_punch: bool) -> np.ndarray:
+    """(B, 16, 4) texels of the colour half of each block (its last 8
+    bytes: c0, c1, four rows of 2-bit indices)."""
+    colors = raw[:, -8:-4].copy().view(np.uint16)
+    pal = _bc_color_palette(colors, bc1_punch)
+    idx = _bc_color_indices(raw[:, -4:])
+    return np.take_along_axis(pal, idx[..., None].astype(np.int64), 1)
+
+
+def _decode_bc1(payload, width, height):
+    texels = _colour_texels(_blocks(payload, width, height, 8), bc1_punch=True)
+    return _assemble_blocks(texels, width, height)
+
+
+def _decode_bc2(payload, width, height):
+    """BC2: explicit 4-bit alpha, texel r * 4 + c at bits 4c of row r."""
+    raw = _blocks(payload, width, height, 16)
+    texels = _colour_texels(raw, bc1_punch=False)
+    a16 = raw[:, :8].copy().view(np.uint16)
+    shifts = np.arange(4, dtype=np.uint16) * 4
+    alpha = ((a16[:, :, None] >> shifts) & 0xF) * 17
+    texels[..., 3] = alpha.reshape(-1, 16).astype(np.uint8)
+    return _assemble_blocks(texels, width, height)
+
+
+def _decode_bc3(payload, width, height):
+    """BC3: interpolated alpha, two endpoints and 16 3-bit indices."""
+    raw = _blocks(payload, width, height, 16)
+    texels = _colour_texels(raw, bc1_punch=False)
+    a0 = raw[:, 0].astype(np.float32)
+    a1 = raw[:, 1].astype(np.float32)
+    apal = np.zeros((raw.shape[0], 8), np.float32)
+    apal[:, 0] = a0
+    apal[:, 1] = a1
+    eight = a0 > a1  # 8-alpha mode vs 6-alpha + 0/255 mode
+    for i in range(2, 8):
+        v8 = ((8 - i) * a0 + (i - 1) * a1) / 7.0
+        if i <= 5:
+            v6 = ((6 - i) * a0 + (i - 1) * a1) / 5.0
+        elif i == 6:
+            v6 = np.zeros_like(a0)
+        else:
+            v6 = np.full_like(a0, 255.0)
+        apal[:, i] = np.where(eight, v8, v6)
+    bits = np.zeros(raw.shape[0], np.uint64)
+    for i in range(6):
+        bits |= raw[:, 2 + i].astype(np.uint64) << np.uint64(8 * i)
+    shifts = np.arange(16, dtype=np.uint64) * np.uint64(3)
+    aidx = ((bits[:, None] >> shifts) & np.uint64(0x7)).astype(np.int64)
+    alpha = np.take_along_axis(apal, aidx, 1)
+    texels[..., 3] = alpha.round().astype(np.uint8)
+    return _assemble_blocks(texels, width, height)
+
+
+def read_ppm(path: str) -> np.ndarray:
+    """Read a binary (P6) 8-bit PPM, as the sample hosts write it, into
+    (H, W, 3) uint8."""
+    with open(path, "rb") as f:
+        data = f.read()
+    fields, pos = [], 0
+    while len(fields) < 4:  # magic, width, height, maxval
+        while data[pos : pos + 1].isspace():
+            pos += 1
+        end = pos
+        while not data[end : end + 1].isspace():
+            end += 1
+        fields.append(data[pos:end])
+        pos = end
+    if fields[0] != b"P6" or fields[3] != b"255":
+        raise ValueError(f"{path} is not an 8-bit binary PPM")
+    w, h = int(fields[1]), int(fields[2])
+    pixels = np.frombuffer(data, np.uint8, w * h * 3, pos + 1)
+    return pixels.reshape(h, w, 3).copy()

@@ -49,6 +49,43 @@ def sky_texture(device, w=256, h=128):
     )
 
 
+_DDS_BLOCK_BYTES = {b"DXT1": 8, b"DXT3": 16, b"DXT5": 16}
+
+
+def dds_file(fourcc: bytes, width: int, height: int, seed: int,
+             bc1_punch=None) -> bytes:
+    """A DDS file of random BC blocks (fourcc DXT1, DXT3 or DXT5) made
+    from `seed` with numpy. bc1_punch (DXT1 only): True orders every
+    block's end points c0 <= c1 (three colours and transparent black),
+    False c0 > c1 (four opaque colours), None leaves them random."""
+    rng = np.random.default_rng(seed)
+    n = ((width + 3) // 4) * ((height + 3) // 4)
+    blocks = rng.integers(0, 256, (n, _DDS_BLOCK_BYTES[fourcc]), np.uint8)
+    if bc1_punch is not None:
+        ends = blocks[:, :4].copy().view(np.uint16)
+        lo, hi = ends.min(1), ends.max(1)
+        hi = np.where(lo == hi, hi | 1, hi)
+        lo = np.where(lo == hi, lo & 0xFFFE, lo)
+        pair = (lo, hi) if bc1_punch else (hi, lo)
+        blocks[:, :4] = np.stack(pair, 1).astype(np.uint16).view(np.uint8)
+    header = np.zeros(32, np.uint32)  # magic + the 124-byte header
+    header[0] = 0x20534444  # 'DDS '
+    header[1] = 124
+    header[2] = 0x1007  # caps, height, width, pixel format
+    header[3], header[4] = height, width
+    header[19] = 32  # pixel format size
+    header[20] = 0x4  # DDPF_FOURCC
+    header[21] = int.from_bytes(fourcc, "little")
+    return header.tobytes() + blocks.tobytes()
+
+
+def dds_texture(device, fourcc=b"DXT1", size=32, seed=0, bc1_punch=None):
+    """A Texture from dds_file (size x size)."""
+    data = dds_file(fourcc, size, size, seed, bc1_punch)
+    return rt64tpu_torch.Texture(device, d.TextureDesc(
+        bytes=data, byte_count=len(data), format=d.TEXTURE_FORMAT_DDS))
+
+
 def uv_sphere(radius=1.0, rings=16, sectors=24):
     """Vertices (pos3, nrm3, uv2) + CCW-front indices."""
     vs, idx = [], []

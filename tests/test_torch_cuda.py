@@ -521,3 +521,59 @@ def test_upscalers_card_match_cpu_under_tf32(card):
         assert (got - want).abs().max().item() <= 1e-5
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
+
+
+def test_abi_host_on_card(card, tmp_path, monkeypatch):
+    """sample_host built with g++ and run on the card (no
+    RT64TPU_TORCH_DEVICE) at 64x48: it picks the sphere, and its PPM is
+    the frame of its calls replayed through the port's bridge on the
+    card (SSIM >= 0.99)."""
+    from rt64tpu_torch.abi import bridge, build, hosts
+    from rt64tpu_torch.utils.assets import read_ppm
+    from rt64tpu_torch.utils.ssim import ssim
+
+    monkeypatch.delenv(bridge.DEVICE_ENV, raising=False)
+    built = build.build(str(tmp_path / "abi"))
+    ppm = str(tmp_path / "sample_host.ppm")
+    run = build.run_host(built.sample_host, ppm, 64, 48)
+    assert run.returncode == 0, run.stderr
+    assert "picked instance at center: sphere" in run.stdout
+    monkeypatch.setenv("RT64TPU_VIEW_WIDTH", "64")
+    monkeypatch.setenv("RT64TPU_VIEW_HEIGHT", "48")
+    replay, pick = hosts.sample_host(bridge)
+    assert pick == "sphere"
+    assert ssim(read_ppm(ppm), replay[..., :3]) >= 0.99
+
+
+def test_train_step_card_matches_cpu(card):
+    """One training step from the same weights (the head made non-zero so
+    every gradient is) on a batch of 2 at 16x16 -> 32x32: the loss within
+    1e-4 of its value and every gradient within 1e-2 of its largest
+    magnitude (bf16 convolutions: cuDNN and oneDNN round some outputs one
+    bf16 step apart; the loss here is ~11.7, and one such step of a few
+    outputs moves it by ~2e-5 of itself); the loss falls on both."""
+    from rt64tpu_torch.models import train_upscaler as tr
+
+    rng = np.random.default_rng(12)
+    u = lambda lo, hi, *s: rng.uniform(lo, hi, s).astype(np.float32)
+    batch = [(dict(rt_color=u(0, 1, 3, 16, 16), depth=u(1, 50, 16, 16),
+                   flow=u(-2, 2, 2, 16, 16), reactive=u(0, 1, 16, 16)),
+              u(0, 1, 3, 32, 32)) for _ in range(2)]
+    head = torch.from_numpy(rng.normal(0, 0.05, (3, 16, 3, 3)).astype(np.float32))
+    losses, grads = {}, {}
+    for where in ("cuda", "cpu"):
+        net = tr.fresh_net(0)
+        with torch.no_grad():
+            net.convs[-1].weight.copy_(head)
+        net = net.to(where)
+        stacked, targets = tr.stack_batch(batch, where)
+        opt = tr.make_optimizer(net, 1e-3)
+        first = tr.train_step(net, opt, 1e-3, stacked, targets, 32, 32)
+        grads[where] = [p.grad.cpu() for p in net.parameters()]
+        second = tr.train_step(net, opt, 1e-3, stacked, targets, 32, 32)
+        losses[where] = (float(first), float(second))
+    assert abs(losses["cuda"][0] - losses["cpu"][0]) <= 1e-4 * losses["cpu"][0]
+    assert losses["cuda"][1] < losses["cuda"][0]
+    assert losses["cpu"][1] < losses["cpu"][0]
+    for got, want in zip(grads["cuda"], grads["cpu"]):
+        assert (got - want).abs().max() <= 1e-2 * want.abs().max()

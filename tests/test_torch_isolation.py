@@ -1,10 +1,13 @@
 """rt64tpu_torch stands alone: it imports neither JAX nor the rt64tpu
-package, its Device defaults to the CUDA card, and every feature it
-does not have yet raises NotImplementedError instead of being skipped
-(the DDS texture)."""
+package (nor does its C ABI shim, which embeds the port's bridge), its
+Device defaults to the CUDA card, and every feature of the JAX package
+renders (the one part not ported, row tiling over several devices,
+raises NotImplementedError: tests/test_torch_tiling.py)."""
 
 import ast
+import glob
 import os
+import re
 import subprocess
 import sys
 import textwrap
@@ -16,7 +19,8 @@ import torch
 from rt64tpu_torch import descriptors as d
 from rt64tpu_torch.ops import math3d
 from rt64tpu_torch.pipeline import framegraph as fg
-from rt64tpu_torch.utils.testscenes import build_sample_scene, hud_triangle
+from rt64tpu_torch.utils.testscenes import (build_sample_scene, dds_texture,
+                                            hud_triangle)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -60,6 +64,22 @@ def test_no_source_imports_jax_or_rt64tpu():
                 continue
             bad = [n for n in names if _forbidden(n)]
             assert not bad, f"{path} imports {bad}"
+
+
+def test_shim_imports_the_port_bridge():
+    """The C ABI's shim embeds the port's bridge, never the JAX
+    package's, and the header's loader names the port's library."""
+    abi = os.path.join(ROOT, "rt64tpu_torch", "abi")
+    sources = glob.glob(os.path.join(abi, "*.cpp"))
+    imports = []
+    for path in sources:
+        with open(path) as f:
+            imports += re.findall(r'PyImport_ImportModule\("([^"]+)"\)', f.read())
+    assert len(sources) == 3 and imports == ["rt64tpu_torch.abi.bridge"]
+    with open(os.path.join(abi, "rt64_tpu.h")) as f:
+        header = f.read()
+    assert re.findall(r'dlopen\(path != NULL \? path : "([^"]+)"', header) == [
+        "librt64tpu_torch.so"]
 
 
 def test_tiny_frame_runs_without_jax_or_rt64tpu():
@@ -164,21 +184,11 @@ def _pipelined(dev, scene, view):
 
 
 def _dds_texture(dev, scene, view):
-    import rt64tpu_torch
-
-    rt64tpu_torch.Texture(dev, d.TextureDesc(
-        bytes=b"DDS " + bytes(124), byte_count=128,
-        format=d.TEXTURE_FORMAT_DDS))
-
-
-@pytest.mark.parametrize("enable", [
-    _dds_texture,
-], ids=lambda f: f.__name__.strip("_"))
-def test_out_of_slice_features_raise(enable):
-    dev, scene, view = _scene()
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        enable(dev, scene, view)
-        dev.draw()
+    # A BC1 texture of opaque blocks on the sphere in place of its checker.
+    sphere = scene.instances[0]
+    sphere.desc.diffuse_texture = dds_texture(dev, b"DXT1", 32, seed=4,
+                                              bc1_punch=False)
+    sphere.set_description(sphere.desc)
 
 
 def _gi(dev, scene, view):
@@ -197,12 +207,13 @@ def _gi_denoiser(dev, scene, view):
 @pytest.mark.parametrize("enable", [
     _gi, _denoiser, _gi_denoiser, _reflections, _refraction, _mip_lod,
     _visualization, _raster_hud, _raster_background, _upscaler,
-    _resolution_scale, _motion_blur, _pipelined,
+    _resolution_scale, _motion_blur, _pipelined, _dds_texture,
 ], ids=lambda f: f.__name__.strip("_"))
 def test_in_slice_features_render(enable):
     """GI, the GI denoiser, reflections, refraction, mip LOD, the debug
     views, the raster foreground and background, the upscaler, resolution
-    scaling, motion blur and the pipelined present render: two frames,
+    scaling, motion blur, the pipelined present and a DDS texture render:
+    two frames,
     the second over the first one's history (the pipelined view two
     more, to fill its ring). All but the denoiser alone and the ring
     change the frame; the ring presents the frame of two draws before."""
