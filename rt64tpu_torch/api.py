@@ -20,21 +20,23 @@ import numpy as np
 import torch
 
 from rt64tpu_torch import descriptors as d
+from rt64tpu_torch.devices import indexed
 from rt64tpu_torch.limits import SceneLimits
 from rt64tpu_torch.ops import math3d
 from rt64tpu_torch.ops.combiner import CombinerParams, decode_combiner
 
 
 def resolve_device(device=None) -> torch.device:
-    """`None` means the CUDA card; anything else is taken as given."""
+    """`None` means the current CUDA card; anything else is taken as
+    given. A card is named by its index (devices.indexed)."""
     if device is None:
         if not torch.cuda.is_available():
             raise RuntimeError(
                 "rt64tpu_torch renders on a CUDA device and none is "
                 "available; pass device='cpu' to run the plain-torch path"
             )
-        return torch.device("cuda")
-    return torch.device(device)
+        device = "cuda"
+    return indexed(device)
 
 
 class Device:

@@ -190,12 +190,14 @@ def measure_streamed(scene_name, width, height, di, gi, reflections,
 
 
 def native_banded(scene_name, width, height, di, gi, reflections, bands,
-                  frames, device=None):
+                  frames, device=None, devices=None):
     """The native frame (upscaler off) drawn in `bands` bands of rows
     through tiling.sharded_render, `frames` frames from zero history with
     the history concatenated across the bands, at a fresh renderer's
     config (alpha boost 1, as bench.py draws it): (the last frame's RGB8
-    image (H, W, 3) numpy, the alpha hits dropped in each frame)."""
+    image (H, W, 3) numpy, the alpha hits dropped in each frame).
+    devices: sharded_render's (None: the bands in turn on `device`; a
+    list: one worker per entry, with `device` its first entry)."""
     from rt64tpu_torch.parallel import tiling
     from rt64tpu_torch.pipeline import framegraph as fg
 
@@ -205,7 +207,7 @@ def native_banded(scene_name, width, height, di, gi, reflections, bands,
     cfg = r._config()
     bg = r._background_planes(cfg)
     gp0 = r._global_params(cfg)
-    render = tiling.sharded_render(cfg, bands)
+    render = tiling.sharded_render(cfg, bands, devices)
     hist = fg.History.zeros(cfg.rt_height, cfg.rt_width, r.device)
     drops = []
     for f in range(frames):

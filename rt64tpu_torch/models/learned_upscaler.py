@@ -16,6 +16,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from rt64tpu_torch.devices import indexed
 from rt64tpu_torch.ops import filters
 
 PARAMS_PATH = os.path.join(os.path.dirname(__file__), "_upscaler_params.npz")
@@ -93,10 +94,14 @@ def set_params(net: UpscaleNet, params) -> UpscaleNet:
     return net
 
 
-@functools.lru_cache(maxsize=None)
 def get_net(device) -> UpscaleNet:
     """The network with the shipped weights, in bf16 on `device` (built
-    once per device)."""
+    once per device; a bare "cuda" is the current card)."""
+    return _net_on(indexed(device))
+
+
+@functools.lru_cache(maxsize=None)
+def _net_on(device: torch.device) -> UpscaleNet:
     net = set_params(UpscaleNet(), load_params())
     net.requires_grad_(False)
     return net.to(device=device, dtype=torch.bfloat16).eval()

@@ -62,12 +62,13 @@ either pair can serve any scene size.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
-import functools
 import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import weakref
 from typing import NamedTuple
 
@@ -130,16 +131,50 @@ _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "rt64tpu_torch")
 
 class LaunchCounts:
     """Kernel launches per wrapper: each wrapper adds one where it
-    launches its kernel, and nowhere else."""
+    launches its kernel, and nowhere else. The counts are the whole
+    process's, whatever thread launched (the bands of
+    parallel/tiling.py launch from worker threads); a thread inside
+    thread_counts() also counts its own launches there. The lock and
+    the thread's own counts are class attributes, so vars() of the
+    instance holds the counts alone."""
+
+    NAMES = ("opaque_launches",  # K1
+             "shadow_launches",  # K2
+             "opaque_mt_launches",  # K3
+             "shadow_mt_launches")  # K4
+    _lock = threading.Lock()
+    _local = threading.local()
 
     def __init__(self):
         self.reset()
 
     def reset(self):
-        self.opaque_launches = 0  # K1
-        self.shadow_launches = 0  # K2
-        self.opaque_mt_launches = 0  # K3
-        self.shadow_mt_launches = 0  # K4
+        with self._lock:
+            for name in self.NAMES:
+                setattr(self, name, 0)
+
+    def add(self, name: str):
+        """One more launch of the wrapper that counts under `name`."""
+        with self._lock:
+            setattr(self, name, getattr(self, name) + 1)
+        own = getattr(self._local, "counts", None)
+        if own is not None:
+            own[name] += 1
+
+    @contextlib.contextmanager
+    def thread_counts(self):
+        """{name: launches} made by this thread inside the block (filled
+        as it runs); the totals count them as well."""
+        outer = getattr(self._local, "counts", None)
+        own = dict.fromkeys(self.NAMES, 0)
+        self._local.counts = own
+        try:
+            yield own
+        finally:
+            self._local.counts = outer
+            if outer is not None:
+                for name, n in own.items():
+                    outer[name] += n
 
 
 launch_counts = LaunchCounts()
@@ -385,12 +420,25 @@ def _csrc_digest():
     return names, sha.hexdigest()[:16]
 
 
-@functools.lru_cache(maxsize=1)
+_library = None
+_library_lock = threading.Lock()
+
+
 def kernel_library() -> KernelLibrary:
     """Build (if needed) and load the packet-tracer library: every .cu
     under csrc/ compiled by its own nvcc (all started together), then
     linked into one shared library. The build output is cached under
-    build/rt64tpu_torch/ by a hash of every file under csrc/."""
+    build/rt64tpu_torch/ by a hash of every file under csrc/. Loaded
+    once a process: a thread that comes while another builds waits for
+    that build."""
+    global _library
+    with _library_lock:
+        if _library is None:
+            _library = _build_library()
+        return _library
+
+
+def _build_library() -> KernelLibrary:
     import time
 
     names, digest = _csrc_digest()
@@ -398,7 +446,9 @@ def kernel_library() -> KernelLibrary:
     path = os.path.join(_BUILD_DIR, f"packet_tracer_{digest}.so")
     seconds, log = 0.0, ""
     if not os.path.exists(path):
-        tmp = f"{path}.{os.getpid()}"
+        # Another process may build the same library at the same time:
+        # each writes its own files and renames the finished one in.
+        tmp = f"{path}.{os.getpid()}.{threading.get_ident()}"
         nvcc = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a",
                 "-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
         t0 = time.perf_counter()
@@ -687,9 +737,12 @@ def work_items_on_card(counts, n_cols: int):
     items = torch.empty(max_items, dtype=torch.int32, device=dev)
     n_items = torch.zeros(1, dtype=torch.int32, device=dev)
     if max_items:
-        err = kernel_library().lib.rt64_work_items(
-            counts.data_ptr(), counts.shape[0], max_items, items.data_ptr(),
-            n_items.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+        lib = kernel_library().lib
+        with torch.cuda.device(dev):  # see _launch_opaque
+            err = lib.rt64_work_items(
+                counts.data_ptr(), counts.shape[0], max_items,
+                items.data_ptr(), n_items.data_ptr(),
+                torch.cuda.current_stream(dev).cuda_stream)
         _raise_on(err, "prologue_kernel")
     return items, n_items
 
@@ -697,7 +750,9 @@ def work_items_on_card(counts, n_cols: int):
 def _launch_opaque(fn, float4s, packer, rays8, clusters, visits, counts,
                    entries, cull_backface, stats, packed, items):
     """Launch a closest-hit walk, K1 or K3 (the C function `fn`: prologue,
-    walk, final pass), on the current stream."""
+    walk, final pass), on the current stream of the inputs' device (the
+    wrapper's _check_inputs and _walk_inputs raise ValueError, naming the
+    tensor, for an input on another device)."""
     n_blocks, n_cols = counts.shape[0], visits.shape[1]
     w = _walk_inputs(rays8, clusters, counts, n_cols, packed, items, float4s,
                      packer, best_words=True)
@@ -708,15 +763,21 @@ def _launch_opaque(fn, float4s, packer, rays8, clusters, visits, counts,
     u = torch.empty(n, dtype=torch.float32, device=dev)
     v = torch.empty(n, dtype=torch.float32, device=dev)
     bias = torch.empty(n, dtype=torch.float32, device=dev)
-    err = getattr(kernel_library().lib, fn)(
-        rays8.data_ptr(), n_blocks, packed.data_ptr(), packed.shape[0],
-        visits.data_ptr(), counts.data_ptr(), entries.data_ptr(), n_cols,
-        int(bool(cull_backface)), w.items, w.n_items, w.max_items,
-        int(w.build_items), w.counter, w.best, t.data_ptr(), tri.data_ptr(),
-        u.data_ptr(), v.data_ptr(), bias.data_ptr(),
-        _stats_ptr(stats, n_blocks, dev),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    stats_ptr = _stats_ptr(stats, n_blocks, dev)
+    launch = getattr(kernel_library().lib, fn)
+    # The CUDA runtime launches on the calling thread's current device (a
+    # fresh thread's is card 0), not on the device of the stream it is
+    # given, and the walk's grid reads cudaGetDevice: the inputs' device
+    # is made the current one around every launch.
+    with torch.cuda.device(dev):
+        err = launch(
+            rays8.data_ptr(), n_blocks, packed.data_ptr(), packed.shape[0],
+            visits.data_ptr(), counts.data_ptr(), entries.data_ptr(), n_cols,
+            int(bool(cull_backface)), w.items, w.n_items, w.max_items,
+            int(w.build_items), w.counter, w.best, t.data_ptr(),
+            tri.data_ptr(), u.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            stats_ptr, torch.cuda.current_stream(dev).cuda_stream,
+        )
     _raise_on(err, fn)
     return t, tri, u, v, bias
 
@@ -724,19 +785,23 @@ def _launch_opaque(fn, float4s, packer, rays8, clusters, visits, counts,
 def _launch_shadow(fn, float4s, packer, rays8, clusters, visits, counts,
                    entries, stats, packed, items):
     """Launch an occlusion walk, K2 or K4 (the C function `fn`: prologue,
-    which zeroes the flags, and walk), on the current stream."""
+    which zeroes the flags, and walk), on the current stream of the
+    inputs' device."""
     n_blocks, n_cols = counts.shape[0], visits.shape[1]
     w = _walk_inputs(rays8, clusters, counts, n_cols, packed, items, float4s,
                      packer, best_words=False)
     dev = rays8.device
     blocked = torch.empty(n_blocks * BLOCK_RAYS, dtype=torch.int32, device=dev)
-    err = getattr(kernel_library().lib, fn)(
-        rays8.data_ptr(), n_blocks, packed.data_ptr(), packed.shape[0],
-        visits.data_ptr(), counts.data_ptr(), entries.data_ptr(), n_cols,
-        w.items, w.n_items, w.max_items, int(w.build_items), w.counter,
-        blocked.data_ptr(), _stats_ptr(stats, n_blocks, dev),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
+    stats_ptr = _stats_ptr(stats, n_blocks, dev)
+    launch = getattr(kernel_library().lib, fn)
+    with torch.cuda.device(dev):  # see _launch_opaque
+        err = launch(
+            rays8.data_ptr(), n_blocks, packed.data_ptr(), packed.shape[0],
+            visits.data_ptr(), counts.data_ptr(), entries.data_ptr(), n_cols,
+            w.items, w.n_items, w.max_items, int(w.build_items), w.counter,
+            blocked.data_ptr(), stats_ptr,
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
     _raise_on(err, fn)
     return blocked
 
@@ -816,7 +881,7 @@ def trace_opaque_blocks(rays8, clusters, visits, counts, entries,
     out = _launch_opaque("rt64_trace_opaque", WP_FLOAT4S,
                          "pack_woop_clusters", rays8, clusters, visits,
                          counts, entries, cull_backface, stats, packed, items)
-    launch_counts.opaque_launches += 1
+    launch_counts.add("opaque_launches")
     return out
 
 
@@ -923,7 +988,7 @@ def trace_shadow_blocks(rays8, clusters, visits, counts, entries,
     blocked = _launch_shadow("rt64_trace_shadow", WP_FLOAT4S,
                              "pack_woop_clusters", rays8, clusters, visits,
                              counts, entries, stats, packed, items)
-    launch_counts.shadow_launches += 1
+    launch_counts.add("shadow_launches")
     return blocked
 
 
@@ -1011,7 +1076,7 @@ def trace_opaque_mt_blocks(rays8, clusters, visits, counts, entries,
     out = _launch_opaque("rt64_trace_opaque_mt", PK_FLOAT4S,
                          "pack_mt_clusters", rays8, clusters, visits, counts,
                          entries, cull_backface, stats, packed, items)
-    launch_counts.opaque_mt_launches += 1
+    launch_counts.add("opaque_mt_launches")
     return out
 
 
@@ -1029,7 +1094,7 @@ def trace_shadow_mt_blocks(rays8, clusters, visits, counts, entries,
     blocked = _launch_shadow("rt64_trace_shadow_mt", PK_FLOAT4S,
                              "pack_mt_clusters", rays8, clusters, visits,
                              counts, entries, stats, packed, items)
-    launch_counts.shadow_mt_launches += 1
+    launch_counts.add("shadow_mt_launches")
     return blocked
 
 

@@ -234,16 +234,3 @@ def test_banded_raster_layers(n):
     whole = pfg.render_frame(r._sb, gp, hist, r.bn_table, cfg, bg_planes=bg)
     banded = tiling.sharded_render(cfg, n)(r._sb, gp, hist, r.bn_table, bg)
     _compare(cfg, n, whole, banded)
-
-
-def test_several_devices_raise():
-    cfg = pfg.RenderConfig(rt_width=64, rt_height=32, display_width=64,
-                           display_height=32)
-    hist = pfg.History.zeros(32, 64, "cpu")
-    fn = tiling.sharded_render(cfg, 2, devices=["cpu", "cpu"])
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 15"):
-        fn(None, None, hist, None, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tiling.replicate_history(hist, ["cpu", "cpu"])
-    same = tiling.replicate_history(hist, ["cpu"])
-    assert all(torch.equal(a, b) for a, b in zip(same, hist))
