@@ -109,7 +109,14 @@ result line):
      from zeros: mean abs < 1e-6, max abs < 1e-4 (with the denoiser, away
      from the rows within gi_filter_passes of a band edge, whose max is
      printed), instance planes equal, no alpha hits dropped; ms and peak
-     per band; then bench config 5's fidelity as bench.py's measure_ssim
+     per band; with the denoiser also a moving camera in 2 and 4 bands:
+     the view turned by MOVE_TURN_DEG (pitch, yaw) before each of 3
+     frames, so prev_view_proj differs from view_proj, drawn whole and
+     in bands with the history carried on each side: the same bounds on
+     the image and on every row of the flow, depth and history planes,
+     instance planes equal, the flow's largest magnitude at least
+     MOVE_FLOW_MIN px (printed, with K1/K2's launches in each run); then
+     bench config 5's fidelity as bench.py's measure_ssim
      computes it: the DLSS performance frame after 8 draws against the
      native 3840x2160 frame drawn in 4 bands of 540 rows (6 if 4 do not
      fit, and the failed allocation is printed), 8 frames with the
@@ -152,9 +159,10 @@ result line):
      draws card against CPU at SSIM >= 0.99;
  21. train: the upscaler trainer's render_pairs at 96x128 -> 192x256,
      2 pairs each of the sample, the castle and the castle with GI on the
-     card (K1/K2 launches counted), 50 steps of a fresh net: the loss
-     finite and lower at step 49 than at step 0, the step-0 loss card
-     against CPU within 1e-5; ms per step, held-out SSIM of the net, the
+     card (K1/K2 launches counted), 50 steps of a fresh net through
+     train_upscaler.fit: the loss finite and lower at step 49 than at
+     step 0, the step-0 loss card against CPU within 1e-5, Conv_0's flow
+     weights zero; ms per step, held-out SSIM of the net, the
      bilinear upscale and the shipped weights; weights written under
      build/;
  22. bench: python3 -m rt64tpu_torch.bench --config 1 (8 frames, 2 reps):
@@ -1639,6 +1647,14 @@ NATIVE_BANDS_IF_OOM = 6
 NATIVE_FRAMES = 4
 
 
+# The moving-camera run of phase banded: the view turned in view space
+# by these degrees (pitch about x, yaw about y) before each frame; the
+# whole frame's flow must reach MOVE_FLOW_MIN px, vertically too (a band's
+# flow y is where the row count enters).
+MOVE_TURN_DEG = (1.5, 2.0)
+MOVE_FLOW_MIN = 1.0
+
+
 def render_timed(fn):
     """(fn(), device ms between CUDA events, peak bytes during it)."""
     import torch
@@ -1684,6 +1700,89 @@ def banded_frame(fn, capture_band=None):
     return out, ms, peaks, seen
 
 
+def moving_planes(out, to_img):
+    """A frame's planes as images, for the moving-camera comparison."""
+    g = out.gbuffers
+    planes = dict(flow=to_img(g.flow), depth=to_img(g.depth))
+    planes.update({f"history.{k}": to_img(v)
+                   for k, v in zip(out.history._fields, out.history)})
+    return out.image, to_img(g.instance), planes
+
+
+def moving_band_runs(view, r, cfg, bg, edges):
+    """Phase banded's moving-camera run (see MOVE_TURN_DEG) on a settled
+    view: BAND_FRAMES frames drawn whole, then in each of BAND_COUNTS
+    bands, the history carried on each side from zeros; edges[n]: the
+    rows next to a band edge (excluded from the image only). The view's
+    camera is put back after. (row, {"moving_bands<n>": K1-K4 launches})."""
+    import numpy as np
+    import torch
+    from rt64tpu_torch.ops import math3d
+    from rt64tpu_torch.ops import tracer_cuda as tc
+    from rt64tpu_torch.parallel import tiling
+    from rt64tpu_torch.pipeline import framegraph as fg
+
+    vm0 = view.view_matrix.copy()
+    gps = []
+    for f in range(BAND_FRAMES):
+        turn = np.radians(MOVE_TURN_DEG) * (f + 1)
+        view.set_perspective(math3d.turn_view(vm0, *turn), view.fov_radians,
+                             view.near_dist, view.far_dist)
+        gps.append(r._global_params(cfg)._replace(
+            frame_count=torch.tensor(f, device="cuda")))
+    view.set_perspective(vm0, view.fov_radians, view.near_dist, view.far_dist)
+    moved = all(not torch.equal(gp.prev_view_proj, gp.view_proj) for gp in gps)
+
+    def frames(fn, to_img):
+        hist, outs = fg.History.zeros(cfg.rt_height, cfg.rt_width, "cuda"), []
+        for gp in gps:
+            out = fn(r._sb, gp, hist, r.bn_table, bg)
+            hist = out.history
+            outs.append(moving_planes(out, to_img))
+            del out
+        return outs
+
+    whole = frames(lambda sb, gp, hist, bn, bg: fg.render_frame(
+        sb, gp, hist, bn, cfg, bg_planes=bg), lambda p: fg.to_image(cfg, p))
+    flow_max = [float(p["flow"].abs().max()) for _, _, p in whole]
+    flow_y_max = [float(p["flow"][1].abs().max()) for _, _, p in whole]
+    row = dict(frames=BAND_FRAMES, turn_deg=MOVE_TURN_DEG,
+               prev_view_proj_differs=moved, flow_max_px=flow_max,
+               flow_y_max_px=flow_y_max)
+    check(moved, "banded moving: prev_view_proj equals view_proj")
+    check(min(flow_y_max) >= MOVE_FLOW_MIN,
+          f"banded moving: flow y max {flow_y_max} px below {MOVE_FLOW_MIN}")
+    launches = {}
+    for n in BAND_COUNTS:
+        tc.launch_counts.reset()
+        banded = frames(tiling.sharded_render(cfg, n),
+                        lambda p: tiling.to_image_banded(cfg, n, p))
+        counts = launches[f"moving_bands{n}"] = dict(vars(tc.launch_counts))
+        per_frame = []
+        for (w_img, w_inst, w_planes), (b_img, b_inst, b_planes) in zip(
+                whole, banded):
+            img = (b_img - w_img).abs()[:, ~edges[n]]
+            errs = {"image": (float(img.mean()), float(img.max()))}
+            for k, w in w_planes.items():
+                d = (b_planes[k] - w).abs()
+                errs[k] = (float(d.mean()), float(d.max()))
+            per_frame.append(dict(mean_max_abs=errs,
+                                  instance_equal=bool(torch.equal(b_inst, w_inst))))
+        row[f"bands{n}"] = dict(frames=per_frame, **counts)
+        for k, fr in enumerate(per_frame):
+            what = f"banded moving {n} bands frame {k}"
+            for name, (mean, mx) in fr["mean_max_abs"].items():
+                check(mean < BAND_MEAN_TOL and mx < BAND_MAX_TOL,
+                      f"{what}: {name} mean {mean} max {mx} from the whole frame")
+            check(fr["instance_equal"], f"{what}: instance planes differ")
+        check(counts["opaque_launches"] >= n * BAND_FRAMES
+              and counts["shadow_launches"] >= n * BAND_FRAMES,
+              f"banded moving {n} bands: K1/K2 launched {counts}")
+        del banded
+    del whole
+    return row, launches
+
+
 def phase_banded_castle():
     import torch
     from rt64tpu_torch.ops import tracer_cuda as tc
@@ -1714,10 +1813,11 @@ def phase_banded_castle():
                           int(out.alpha_dropped)))
             del out
         row.update(whole_ms=ms, whole_peak=peak)
+        edges = {}
         for n in BAND_COUNTS:
             band = tiling.shard_config(cfg, n)
             render = tiling.sharded_render(cfg, n)
-            edge = torch.zeros(GI_H, dtype=torch.bool, device="cuda")
+            edge = edges[n] = torch.zeros(GI_H, dtype=torch.bool, device="cuda")
             if denoiser:
                 for b in range(1, n):
                     lo = b * band.rt_height
@@ -1742,7 +1842,7 @@ def phase_banded_castle():
                     band_ms=band_ms, band_peak=band_peak))
                 del out, inst, diff, keep
             counts = dict(vars(tc.launch_counts))
-            counts_all[(denoiser, n)] = counts
+            counts_all[f"{'denoiser_' if denoiser else ''}bands{n}"] = counts
             row[f"bands{n}"] = dict(rows=band.rt_height, tiled=band.tiled,
                                     frames=per_frame, **counts)
             for k, fr in enumerate(per_frame):
@@ -1756,6 +1856,9 @@ def phase_banded_castle():
             check(counts["opaque_launches"] >= n * BAND_FRAMES
                   and counts["shadow_launches"] >= n * BAND_FRAMES,
                   f"{row['phase']} {n} bands: K1/K2 launched {counts}")
+        if denoiser:
+            row["moving"], moving = moving_band_runs(view, r, cfg, bg, edges)
+            counts_all.update(moving)
         emit(row)
         rows[denoiser] = row
         del dev, view, r, whole, hist
@@ -2084,6 +2187,8 @@ def multicard_scene(tag, r, cfg, gp0, bg, n, frames, denoiser, whole, keys):
     per_frame = []
     with ThreadedClock() as clock:
         fn = tiling.sharded_render(cfg, n, devices)
+        # One entry a band: every entry draws, so these are the copies for
+        # the workers that fn takes.
         hist = tiling.replicate_history(fg.History.zeros(h, w, home), devices)
         for f in range(frames):
             out = fn(r._sb, gp_of(f), hist, r.bn_table, bg)
@@ -2535,7 +2640,8 @@ def phase_train():
     castle with GI (the launch counts set to 0 just before and read just
     after), the last pair of each kind held out; a fresh net, the step-0
     loss on the card against the CPU from the same weights; TRAIN_STEPS
-    steps (ms per step between CUDA events); held-out SSIM of the net,
+    steps of train_upscaler.fit (ms per step between CUDA events), whose
+    net takes nothing from the flow channels; held-out SSIM of the net,
     the bilinear upscale and the shipped weights. The weights are written
     under build/."""
     import os
@@ -2558,22 +2664,19 @@ def phase_train():
 
     net = tr.fresh_net(0, "cuda")
     cpu_net = tr.fresh_net(0, "cpu")
-    stacked, targets = tr.stack_batch(batch, "cuda")
     with torch.no_grad():
         cpu_loss0 = float(tr.loss_fn(cpu_net, *tr.stack_batch(batch, "cpu"),
                                      dh, dw))
-    opt = tr.make_optimizer(net, 1e-3)
-    schedule = tr.cosine_decay(1e-3, TRAIN_STEPS)
-    losses = []
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    # fit's batch upload and its one sync (zero_unseen_inputs) count in
+    # the steps' time.
     start.record()
-    for step in range(TRAIN_STEPS):
-        losses.append(tr.train_step(net, opt, schedule(step), stacked, targets,
-                                    dh, dw))
+    losses = tr.fit(net, batch, TRAIN_STEPS, 1e-3, "cuda")
     end.record()
     torch.cuda.synchronize()
     losses = [float(v) for v in losses]
+    flow_weights = float(net.convs[0].weight[:, 4:6].abs().max())
     s_net, s_bil = tr.evaluate(net, heldout, dh, dw, "cuda")
     s_shipped, _ = tr.evaluate(lu.get_net(torch.device("cuda")), heldout, dh,
                                dw, "cuda")
@@ -2587,12 +2690,15 @@ def phase_train():
                loss_first=losses[0], loss_last=losses[-1],
                loss_every_10=losses[::10], cpu_loss_step0=cpu_loss0,
                heldout_ssim_net=s_net, heldout_ssim_bilinear=s_bil,
-               heldout_ssim_shipped=s_shipped, weights=out, **counts)
+               heldout_ssim_shipped=s_shipped, conv0_flow_weight_max=flow_weights,
+               weights=out, **counts)
     emit(row)
     check(tuple(lo) == (96, 128) and (dh, dw) == (192, 256),
           f"training pairs {lo} -> {(dh, dw)}")
     check(all(np.isfinite(losses)), f"a training loss is not finite: {losses}")
     check(losses[-1] < losses[0], f"the loss did not fall: {losses[0]} -> {losses[-1]}")
+    check(flow_weights == 0.0,
+          f"Conv_0 takes {flow_weights} from the cut pairs' zero flow")
     check(abs(losses[0] - cpu_loss0) <= TRAIN_LOSS_TOL,
           f"step-0 loss card {losses[0]} CPU {cpu_loss0}")
     check(counts["opaque_launches"] >= 2 * 3 * TRAIN_PAIRS
@@ -2631,8 +2737,7 @@ def phase_bench():
 
 
 def band_launches(counts, key):
-    return {f"{'denoiser_' if den else ''}bands{n}": c[key]
-            for (den, n), c in counts.items()}
+    return {run: c[key] for run, c in counts.items()}
 
 
 def result_line():
@@ -2800,7 +2905,8 @@ def run(args):
     # as raster_launches, in the frames of each upscaled bench config, as
     # upscaled_launches, in the timed frames of each mode of the streamed
     # loop, as streamed_launches, in each banded run of the castle GI
-    # frame (denoiser off and on, 2 and 4 bands), as banded_launches, in
+    # frame (denoiser off and on, 2 and 4 bands, and the moving camera
+    # with the denoiser), as banded_launches, in
     # each sample host's calls made through the C ABI, as abi_launches, and
     # in the trainer's render_pairs, as train_launches. All four carry the
     # launches made in the worker threads of phase multicard, per run, as

@@ -3,8 +3,13 @@
 A compact CNN consuming the inputs the reference feeds NGX (colour,
 depth, flow, reactive mask, rt64_dlss.cpp:193-227): it predicts a
 residual over the bilinear upscale. The weights ship beside this file
-(`_upscaler_params.npz`, the JAX package's trained parameters, byte for
-byte); a missing file raises.
+(`_upscaler_params.npz`, in the JAX package's layout, which reads it
+too): the port's trainer's net (models/train_upscaler.fit, 32 pairs of
+each scene kind, 2,000 steps, fresh_net(0)), trained on the planes
+serving feeds it. Its pairs are camera cuts, so it takes nothing from
+the flow channels (their weights are zero). The JAX package's own file,
+trained on scrambled planes and on the flow between unrelated cameras,
+had collapsed to the bilinear upscale. A missing file raises.
 """
 
 from __future__ import annotations
@@ -58,11 +63,12 @@ class UpscaleNet(nn.Module):
         return h.to(torch.float32)
 
 
-def load_params(path: str = PARAMS_PATH):
+def load_params(path: str | None = None):
     """The trained parameters as (weight OIHW, bias) pairs, f32 numpy.
     The file's keys 0000-0009 are Flax's sorted tree order: (bias,
     kernel) of Conv_0 ... Conv_4, kernels HWIO (a file of either package's
-    trainer)."""
+    trainer). path: None for PARAMS_PATH, read at the call."""
+    path = PARAMS_PATH if path is None else path
     if not os.path.exists(path):
         raise FileNotFoundError(
             f"learned upscaler weights not found: {path}")
@@ -119,8 +125,8 @@ def _run(rt_color, depth, flow, reactive, dh: int, dw: int):
     x = filters.bilinear_resize(
         torch.cat([rt_color, depth[None], flow, reactive[None]], 0), dh, dw,
     )
-    # The raw world-scale depth plane is fed unnormalised: the shipped
-    # weights were trained against that input.
+    # The depth plane is fed unnormalised: the shipped weights were
+    # trained against that input.
     return x[:3] + residual(x)
 
 

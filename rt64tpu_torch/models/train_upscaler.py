@@ -10,12 +10,23 @@ package's trainer (rt64tpu/models/train_upscaler.py), on the CUDA card:
 
 The same camera draws, corpus (sample, castle, castle GI), loss, Adam
 with global-norm clipping and cosine decay, and weight file layout (the
-JAX package reads the file, and the port serves it once it replaces
-models/_upscaler_params.npz). Two differences, both faults of the JAX
-trainer (ROADMAP queue 3):
+JAX package reads the file too). The shipped weights,
+models/_upscaler_params.npz, are fit's net at 32 pairs a kind and 2,000
+steps (scripts/retrain_study.py drew them, and the held-out comparison
+that chose them, on still and moving cameras). Three differences, all faults of the JAX
+trainer (ROADMAP queue 3), and the zeroing that the second calls for:
 - the low-res depth, flow and reactive planes go through
   framegraph.to_image, as serving feeds them; the JAX trainer reshapes
   the tile-ordered planes of its 96x128 frames, which scrambles them;
+- each pair is a camera cut (set_perspective with can_reproject off):
+  its flow plane is that of a still camera, zero on these static
+  scenes, as serving feeds it on a still camera or after a cut; the
+  JAX trainer re-poses the view with can_reproject on, so each pair's
+  flow is the motion from the previous pair's unrelated random camera
+  (hundreds to millions of pixels); so fit first zeroes Conv_0's
+  weights of the flow channels (zero_unseen_inputs): no gradient
+  reaches them, and at their random init the served net would respond
+  to the flow of a moving camera, which it never learned from;
 - --out has no default: a run never overwrites the shipped weights
   unless it is asked to.
 """
@@ -70,16 +81,11 @@ def camera_draws(n: int, scene_kind: str = "sample", seed0: int = 0):
     return cams
 
 
-def render_pairs(n: int, scene_kind: str = "sample", lo=(96, 128),
-                 hi=(192, 256), seed0: int = 0, gi: int = 0, device=None):
-    """n (inputs, target) pairs from camera_draws, as numpy: inputs holds
-    the low-res frame's rt_color (3, h, w) and its depth (h, w), flow
-    (2, h, w) and reactive (h, w) planes as images; the target is the
-    high-res frame's rt_color. scene_kind "sample" or "castle"; gi=1
-    renders with one-bounce GI. Each (kind, size) scene is built once
-    and only the camera moves. device: None for the CUDA card."""
-    from rt64tpu_torch.pipeline.framegraph import to_image
-
+def scene_views(scene_kind: str = "sample", lo=(96, 128), hi=(192, 256),
+                gi: int = 0, device=None):
+    """{"lo": (device, view), "hi": (device, view)}: the scene built at
+    each size. scene_kind "sample" or "castle"; gi=1 renders with
+    one-bounce GI. device: None for the CUDA card."""
     views = {}
     for tag, (h, w) in (("lo", lo), ("hi", hi)):
         if scene_kind == "castle":
@@ -93,24 +99,39 @@ def render_pairs(n: int, scene_kind: str = "sample", lo=(96, 128),
             dev, _, view = build_sample_scene(width=w, height=h, gi_samples=gi,
                                               device=device)
         views[tag] = (dev, view)
+    return views
 
+
+def frame_inputs(view):
+    """The net's inputs from the view's last frame, as numpy: rt_color
+    (3, h, w), and the depth (h, w), flow (2, h, w) and reactive (h, w)
+    planes through framegraph.to_image, as serving feeds them."""
+    from rt64tpu_torch.pipeline.framegraph import to_image
+
+    out, cfg = view._renderer._last, view._renderer._last_cfg
+    g = out.gbuffers
     host = lambda t: t.cpu().numpy()
+    return dict(rt_color=host(out.rt_output),
+                depth=host(to_image(cfg, g.depth)),
+                flow=host(to_image(cfg, g.flow)),
+                reactive=host(to_image(cfg, g.reactive)))
+
+
+def render_pairs(n: int, scene_kind: str = "sample", lo=(96, 128),
+                 hi=(192, 256), seed0: int = 0, gi: int = 0, device=None):
+    """n (inputs, target) pairs from camera_draws, as numpy: inputs are
+    the low-res frame's frame_inputs; the target is the high-res frame's
+    rt_color. Each (kind, size) scene is built once (scene_views) and
+    only the camera moves, each pair a camera cut (no reprojection from
+    the previous pair's camera). device: None for the CUDA card."""
+    views = scene_views(scene_kind, lo, hi, gi, device)
     pairs = []
     for vm, fov in camera_draws(n, scene_kind, seed0):
-        frames = {}
-        for tag, (dev, view) in views.items():
-            view.set_perspective(vm, fov, 0.1, 1000.0, True)
+        for dev, view in views.values():
+            view.set_perspective(vm, fov, 0.1, 1000.0, False)
             dev.draw()
-            frames[tag] = (view._renderer._last, view._renderer._last_cfg)
-        out, cfg = frames["lo"]
-        g = out.gbuffers
-        inputs = dict(
-            rt_color=host(out.rt_output),
-            depth=host(to_image(cfg, g.depth)),
-            flow=host(to_image(cfg, g.flow)),
-            reactive=host(to_image(cfg, g.reactive)),
-        )
-        pairs.append((inputs, host(frames["hi"][0].rt_output)))
+        pairs.append((frame_inputs(views["lo"][1]),
+                      frame_inputs(views["hi"][1])["rt_color"]))
     return pairs
 
 
@@ -147,11 +168,17 @@ def stack_batch(batch, device):
     return tuple(col(k) for k in INPUT_KEYS), targets
 
 
+def net_input(stacked):
+    """(B, 7, h, w): the stacked planes in the net's channel order:
+    rt_color 0-2, depth 3, flow 4-5, reactive 6."""
+    rc, dp, fl, re = stacked
+    return torch.cat([rc, dp[:, None], fl, re[:, None]], 1)
+
+
 def forward(net, stacked, dh: int, dw: int):
     """(B, 3, dh, dw): the bilinear upscale of each pair's colour plus the
     net's residual, one batched forward of (B, 7, dh, dw)."""
-    rc, dp, fl, re = stacked
-    x = torch.cat([rc, dp[:, None], fl, re[:, None]], 1)
+    x = net_input(stacked)
     b, c, h, w = x.shape
     x = filters.bilinear_resize(x.reshape(b * c, h, w), dh, dw)
     x = x.reshape(b, c, dh, dw)
@@ -258,6 +285,45 @@ def hold_out(batch, kinds):
     return [batch.pop(i) for i in sorted(last_of_kind.values(), reverse=True)]
 
 
+def zero_unseen_inputs(net, stacked):
+    """Zeroes Conv_0's weights of each input channel that is zero in every
+    pair of `stacked` (flow, since the pairs are camera cuts): they get
+    no gradient, so training would leave them at their random init, and
+    the served net would respond to an input it never learned from (flow
+    under a moving camera). Returns the channels zeroed (bool, (7,))."""
+    unseen = (net_input(stacked) == 0).flatten(2).all(2).all(0)
+    with torch.no_grad():
+        net.convs[0].weight[:, unseen] = 0
+    return unseen.cpu()
+
+
+def fit(net, batch, steps: int, lr: float, device):
+    """Trains `net` in place on the whole of `batch` for `steps` steps:
+    zero_unseen_inputs, then train_step under the cosine schedule from
+    lr. Returns each step's loss before it (0-d tensors on the device:
+    no host sync in the loop)."""
+    stacked, targets = stack_batch(batch, device)
+    zero_unseen_inputs(net, stacked)
+    dh, dw = targets.shape[-2:]
+    opt = make_optimizer(net, lr)
+    schedule = cosine_decay(lr, steps)
+    return [train_step(net, opt, schedule(step), stacked, targets, dh, dw)
+            for step in range(steps)]
+
+
+def load_or_render(path, render):
+    """(batch, kinds): the pair cache at `path` if it exists, else
+    render(), cached to `path` when one is given."""
+    if path and os.path.exists(path):
+        print("loading cached pairs from", path)
+        return load_pairs(path)
+    batch, kinds = render()
+    if path:
+        save_pairs(path, batch, kinds)
+        print("cached pairs to", path)
+    return batch, kinds
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--steps", type=int, default=400)
@@ -275,25 +341,19 @@ def main(argv=None):
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise SystemExit("no CUDA device; pass --device cpu to train on the CPU")
-    if args.data and os.path.exists(args.data):
-        print("loading cached pairs from", args.data)
-        batch, kinds = load_pairs(args.data)
-    else:
+
+    def render():
         print(f"rendering {args.pairs} sample + {args.pairs} castle + "
               f"{args.pairs} castle-GI pairs...")
-        batch, kinds = corpus(args.pairs, device)
-        if args.data:
-            save_pairs(args.data, batch, kinds)
-            print("cached pairs to", args.data)
+        return corpus(args.pairs, device)
+
+    batch, kinds = load_or_render(args.data, render)
     heldout = hold_out(batch, kinds)
     dh, dw = batch[0][1].shape[1:]
 
     net = fresh_net(0, device)
-    opt = make_optimizer(net, args.lr)
-    schedule = cosine_decay(args.lr, args.steps)
-    stacked, targets = stack_batch(batch, device)
-    for step in range(args.steps):
-        loss = train_step(net, opt, schedule(step), stacked, targets, dh, dw)
+    losses = fit(net, batch, args.steps, args.lr, device)
+    for step, loss in enumerate(losses):
         if step % 25 == 0 or step == args.steps - 1:
             print(f"step {step}: loss {float(loss):.6f}")
 

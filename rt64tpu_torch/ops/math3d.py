@@ -78,6 +78,16 @@ def rotation_y(angle: float):
     )
 
 
+def turn_view(view_matrix, pitch: float, yaw: float):
+    """view_matrix (world -> view) turned in view space: pitch radians
+    about x, then yaw radians about y. f32."""
+    cp, sp, cy, sy = math.cos(pitch), math.sin(pitch), math.cos(yaw), math.sin(yaw)
+    rot = np.eye(4)
+    rot[:3, :3] = (np.array([[1, 0, 0], [0, cp, sp], [0, -sp, cp]])
+                   @ np.array([[cy, 0, -sy], [0, 1, 0], [sy, 0, cy]]))
+    return (np.asarray(view_matrix, np.float64) @ rot).astype(np.float32)
+
+
 def halton(i: int, b: int) -> float:
     """HaltonSequence (rt64_common.h:347-357)."""
     f, r = 1.0, 0.0

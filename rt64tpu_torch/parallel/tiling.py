@@ -22,13 +22,15 @@ wait for its own stream only. The workers still share the one GIL,
 which each takes back after every eager op: with many small ops a band
 issues no faster, and the handoffs cost more the more workers there are
 (PERF.md has the measured cost). The inputs live on the home device,
-devices[0]; every other device gets copies (replicate_inputs,
-replicate_history: the all-gather's counterpart), and the bands' outputs
-come back to the home device in band order (gather_bands). Entries may
-repeat a device: on one card the bands still run side by side, each on
-its own stream. devices=None draws the bands one after another on the
-inputs' device, on the calling thread (bench.py's native 4K reference
-on one card, where the whole frame does not fit).
+devices[0]; the workers, the entries that draw a band (devices[:n_bands]),
+get copies on their devices (replicate_inputs, replicate_history: the
+all-gather's counterpart), and an entry past the band count is sent
+nothing. The bands' outputs come back to the home device in band order
+(gather_bands). Entries may repeat a device: on one card the bands
+still run side by side, each on its own stream. devices=None draws the
+bands one after another on the inputs' device, on the calling thread
+(bench.py's native 4K reference on one card, where the whole frame does
+not fit).
 """
 
 from __future__ import annotations
@@ -130,26 +132,30 @@ def replicate_inputs(inputs: FrameInputs, devices) -> dict:
 
 def replicate_history(history: fg.History, devices) -> tuple:
     """The whole frame's history on every entry of `devices` (None: the
-    history's own device), one History per entry, as sharded_render's fn
-    takes it: entries on one device share one copy, and on the history's
-    own device it is the history itself. Reprojection reads across band
-    edges, so every band needs the whole of it."""
+    history's own device), one History per entry: entries on one device
+    share one copy, and on the history's own device it is the history
+    itself. Reprojection reads across band edges, so every band needs the
+    whole of it. sharded_render's fn takes the copies for its workers
+    only, the entries that draw a band: pass devices[:n_bands] (fn
+    refuses copies for an entry past the band count)."""
     entries = [history.depth.device] if devices is None else _entries(devices)
     per_device = {d: fg.history_to(history, d) for d in dict.fromkeys(entries)}
     return tuple(per_device[d] for d in entries)
 
 
-def _histories(history, entries) -> tuple:
-    """fn's history argument as one History per entry: a History is
-    replicated, replicate_history's copies are checked."""
+def _histories(history, workers) -> tuple:
+    """fn's history argument as one History per worker (an entry that
+    draws a band): a History is replicated to the workers only;
+    replicate_history's copies must be the workers', one each, and are
+    checked."""
     if isinstance(history, fg.History):
-        return replicate_history(history, entries)
+        return replicate_history(history, workers)
     history = tuple(history)
-    if (len(history) != len(entries)
-            or any(h.depth.device != d for h, d in zip(history, entries))):
+    if (len(history) != len(workers)
+            or any(h.depth.device != d for h, d in zip(history, workers))):
         raise ValueError(
-            "history must be one History or replicate_history's copies, "
-            f"one per entry of {entries}")
+            "history must be one History or replicate_history's copies "
+            f"for the entries that draw a band, one each: {workers}")
     return history
 
 
@@ -185,8 +191,12 @@ def sharded_render(cfg: fg.RenderConfig, n_bands: int, devices=None,
     whole frame, drawn in n_bands bands of cfg's rows.
 
     history covers the whole frame in the bands' pixel order (the
-    previous call's output history, or History.zeros of the whole frame),
-    or is replicate_history's copies of it for these devices; bg_planes
+    previous call's output history, or History.zeros of the whole frame).
+    fn copies it to the workers only, the entries that draw a band
+    (devices[:n_bands]); an entry past the band count gets no copy. It
+    may also be replicate_history(history, devices[:n_bands])'s copies;
+    copies for any other list of entries (every entry of a list longer
+    than n_bands, say) raise ValueError naming the workers. bg_planes
     is the whole frame's (3, H, W) base plane. Per-pixel outputs are the
     bands' concatenated (to_image_banded reads them as images),
     alpha_dropped their sum.
@@ -219,7 +229,7 @@ def sharded_render(cfg: fg.RenderConfig, n_bands: int, devices=None,
             raise ValueError(f"the inputs are on {gp.view.device}, "
                              f"devices[0] is {home}")
         workers = entries[:n_bands]
-        histories = _histories(history, entries)
+        histories = _histories(history, workers)
         per_device = replicate_inputs(inputs, workers)
         card = home.type == "cuda"
         if card:

@@ -485,14 +485,25 @@ def test_layered_frame_card_matches_cpu(card):
     assert ssim(fbs[1], fbs[3]) >= 0.99
 
 
-def test_upscalers_card_match_cpu_under_tf32(card):
+@pytest.mark.parametrize("weights", ["shipped", "jax"])
+def test_upscalers_card_match_cpu_under_tf32(card, monkeypatch, weights):
     """The resize, both accumulators and the learned slot on the card
     against the CPU, with the caller's TF32 matmul switch on: the
     resize's products are plain f32 multiplies and adds, so the history
-    the accumulators feed back keeps f32 whatever the caller set."""
+    the accumulators feed back keeps f32 whatever the caller set. The
+    learned slot runs the shipped weights, and the JAX package's file
+    (read as a file)."""
+    import os
+
     from rt64tpu_torch.models import learned_upscaler as lus
     from rt64tpu_torch.models import upscaler as ups
     from rt64tpu_torch.ops import filters
+
+    if weights == "jax":
+        root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        monkeypatch.setattr(lus, "PARAMS_PATH", os.path.join(
+            root, "rt64tpu", "models", "_upscaler_params.npz"))
+    lus._net_on.cache_clear()
 
     rng = np.random.default_rng(9)
     f = lambda *s, lo=0.0, hi=1.0: torch.from_numpy(
@@ -517,11 +528,15 @@ def test_upscalers_card_match_cpu_under_tf32(card):
         got = lus._run(rt.to(card), depth.to(card), flow.to(card),
                        reactive.to(card), 120, 160).cpu()
         want = lus._run(rt, depth, flow, reactive, 120, 160)
-        # bf16 convolutions: cuDNN and oneDNN may round a residual
-        # (at most ~3e-4) one bf16 step apart.
-        assert (got - want).abs().max().item() <= 1e-5
+        # bf16 convolutions: cuDNN and oneDNN may round the residual one
+        # bf16 step apart, two steps of its largest magnitude at most
+        # (1e-5 for the JAX package's file, whose residual stays ~3e-4).
+        res = (want - filters.bilinear_resize(rt, 120, 160)).abs().max().item()
+        bound = max(1e-5, 2.0 * 2.0 ** (np.floor(np.log2(res)) - 7))
+        assert (got - want).abs().max().item() <= bound, (res, bound)
     finally:
         torch.backends.cuda.matmul.allow_tf32 = before
+        lus._net_on.cache_clear()
 
 
 def test_abi_host_on_card(card, tmp_path, monkeypatch):

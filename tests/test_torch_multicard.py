@@ -22,6 +22,16 @@ entry is "cpu" and the workers are plain threads.
 - Three frames with the denoiser (reprojection across band edges), the
   history carried by replicate_history: equal to the serial bands frame
   by frame.
+- A moving camera (tests/test_torch_tiling.py's moving_whole: the castle
+  at 128x64 and the sample at 128x40 with the denoiser, the view turned
+  before each of 3 frames): 2 and 4 bands over as many workers hold
+  image, flow, depth, instance and history planes to the whole frame
+  with that file's bounds, the history carried by replicate_history for
+  the workers, and equal the serial bands bit for bit.
+- 2 bands on 4 entries: the history goes to the 2 entries that draw a
+  band only (replicate_history spied on), its copies for those 2 are
+  taken and copies for all 4 refused; the frame equals the serial bands
+  bit for bit.
 - A worker that raises makes the frame raise; empty device lists and
   band counts that do not divide the rows raise; each entry's bands run
   in its own worker thread.
@@ -51,6 +61,7 @@ from rt64tpu_torch.parallel import tiling
 from rt64tpu_torch.pipeline import framegraph as pfg
 from rt64tpu_torch.utils.castle_scene import build_castle_scene as port_castle
 from rt64tpu_torch.utils.testscenes import build_sample_scene as port_sample
+from tests.test_torch_tiling import compare_moving, draw_moving, moving_whole  # noqa: F401
 
 MEAN_TOL, MAX_TOL = 1e-6, 1e-4
 HISTORY_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -220,6 +231,41 @@ def test_history_across_frames_matches_serial():
         h_workers = tiling.replicate_history(a.history, devices)
         h_serial = b.history
     assert float(b.indirect_accum[3].max()) > 1.5  # reprojected
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_moving_camera_workers_match_whole(moving_whole, n):
+    r, cfg, gps, bg, wholes = moving_whole
+    devices = ["cpu"] * n
+    outs = draw_moving(tiling.sharded_render(cfg, n, devices=devices), r,
+                       gps, bg, cfg,
+                       lambda h: tiling.replicate_history(h, devices))
+    serial = draw_moving(tiling.sharded_render(cfg, n), r, gps, bg, cfg)
+    for f, (whole, a, b) in enumerate(zip(wholes, outs, serial)):
+        try:
+            compare_moving(cfg, n, whole, a)
+        except AssertionError as exc:
+            raise AssertionError(f"frame {f}: {exc}") from exc
+        assert _all_equal(a, b), f"frame {f}"
+
+
+def test_history_only_to_the_drawing_entries(whole_frame, monkeypatch):
+    r, cfg, gp, bg, hist, whole = whole_frame
+    devices = ["cpu"] * 4
+    replicate = tiling.replicate_history
+    sent = []
+    monkeypatch.setattr(tiling, "replicate_history",
+                        lambda h, d: sent.append(list(d)) or replicate(h, d))
+    fn = tiling.sharded_render(cfg, 2, devices=devices)
+    banded = fn(r._sb, gp, hist, r.bn_table, bg)
+    assert sent == [[torch.device("cpu")] * 2]
+    _compare(cfg, 2, whole, banded)
+    serial = tiling.sharded_render(cfg, 2)(r._sb, gp, hist, r.bn_table, bg)
+    assert _all_equal(banded, serial)
+    workers_copies = replicate(hist, devices[:2])
+    assert _all_equal(fn(r._sb, gp, workers_copies, r.bn_table, bg), serial)
+    with pytest.raises(ValueError, match="draw a band, one each"):
+        fn(r._sb, gp, replicate(hist, devices), r.bn_table, bg)
 
 
 def test_replicate_history_copies():

@@ -21,6 +21,17 @@ on the CPU.
   filter sees only its band.
 - Raster layers (a background triangle instead of the sky plane, and a
   HUD triangle) in 2 and 4 bands equal the whole frame.
+- A moving camera: the castle at 128x64 and the sample at 128x40 with
+  the denoiser, MOVE_FRAMES frames with the view turned (pitch and yaw)
+  before each, so prev_view_proj differs from view_proj and the flow
+  plane reaches at least a pixel. In 2 and 4 bands, each frame's image
+  (band-edge rows excluded with the denoiser, as above), flow, depth,
+  instance and history planes equal the whole frame's with the same
+  bounds, the history carried across frames on each side, so
+  reprojection reads across band edges. The port scales a band's flow
+  by the whole frame's rows; on the same moved camera the JAX package's
+  band (its render_frame with row_offset) has a flow y smaller by the
+  factor grid_height / band rows (ROADMAP queue 3, fixed in the port).
 """
 
 import dataclasses
@@ -38,6 +49,7 @@ from rt64tpu.utils.testscenes import build_sample_scene as jax_sample
 
 from rt64tpu_torch.convert import global_params_from_numpy, scene_buffers_from_numpy
 from rt64tpu_torch.ops import bluenoise
+from rt64tpu_torch.ops import math3d as pmath3d
 from rt64tpu_torch.parallel import tiling
 from rt64tpu_torch.pipeline import framegraph as pfg
 from rt64tpu_torch.utils.castle_scene import build_castle_scene as port_castle
@@ -45,6 +57,19 @@ from rt64tpu_torch.utils.testscenes import build_sample_scene as port_sample
 from rt64tpu_torch.utils.testscenes import hud_triangle
 
 MEAN_TOL, MAX_TOL = 1e-6, 1e-4
+# Flow against the JAX package: pixel differences of screen positions,
+# XLA's CPU arithmetic against torch's (the float-plane parity bound of
+# tests/test_torch_gi.py).
+FLOW_TOL = dict(rtol=1e-5, atol=1e-5)
+# The moving camera: frames, and the turn before each (degrees of pitch
+# and of yaw in view space).
+MOVE_FRAMES = 3
+TURN_DEG = (1.5, 2.0)
+
+
+def turned(view_matrix, k):
+    """view_matrix turned k steps of TURN_DEG (pitch, yaw) in view space."""
+    return pmath3d.turn_view(view_matrix, *np.radians(TURN_DEG) * k)
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -114,14 +139,22 @@ def jax_bands():
         assert int(o.alpha_dropped) == 0
         outs.append((np.asarray(o.image),
                      np.asarray(jfg.to_image(band, o.gbuffers.instance))))
+    # The view turned once: prev_view_proj is the still frame's.
+    view.set_perspective(turned(view.view_matrix, 1), view.fov_radians,
+                         view.near_dist, view.far_dist)
+    gp_moved = r._global_params(cfg)
+    flows = [np.asarray(jfg.to_image(band, fn(
+        r._sb, gp_moved, hist, r.bn_table, bg,
+        jnp.int32(b * band.rt_height)).gbuffers.flow)) for b in range(2)]
     sb = r._sb
+    to_port = lambda gp: global_params_from_numpy(
+        {f: np.asarray(getattr(gp, f)) for f in pfg.GlobalParams._fields},
+        "cpu")
     port_in = dict(
         sb=scene_buffers_from_numpy(
             {f: (None if getattr(sb, f) is None else np.asarray(getattr(sb, f)))
              for f in sb._fields if f != "features"}, sb.features, "cpu"),
-        gp=global_params_from_numpy(
-            {f: np.asarray(getattr(gp, f)) for f in pfg.GlobalParams._fields},
-            "cpu"),
+        gp=to_port(gp), gp_moved=to_port(gp_moved), jax_flows=flows,
         cfg=_cfg_to_port(cfg))
     return outs, port_in
 
@@ -142,6 +175,28 @@ def test_band_matches_jax(jax_bands, b):
         pfg.present_rgb8(torch.from_numpy(j_img)).numpy())
     np.testing.assert_array_equal(
         pfg.to_image(band, pout.gbuffers.instance).numpy(), j_inst)
+
+
+@pytest.mark.parametrize("b", [0, 1])
+def test_jax_band_flow_is_scaled_by_the_band_rows(jax_bands, b):
+    """The fault the port fixes: a band's flow is in pixels of the whole
+    frame in the port, of the band's rows in the JAX package."""
+    _, inp = jax_bands
+    cfg, gp = inp["cfg"], inp["gp_moved"]
+    assert not torch.equal(gp.prev_view_proj, gp.view_proj)
+    band = tiling.shard_config(cfg, 2)
+    bn = torch.from_numpy(bluenoise.packed_table())
+    pout = pfg.render_frame(inp["sb"], gp,
+                            pfg.History.zeros(cfg.rt_height, cfg.rt_width, "cpu"),
+                            bn, band, row_offset=b * band.rt_height)
+    port = pfg.to_image(band, pout.gbuffers.flow).numpy()
+    jax_flow = inp["jax_flows"][b]
+    assert np.abs(port[1]).max() >= 1.0  # the camera moved vertically
+    factor = band.grid_height / band.rt_height
+    assert factor == 2
+    np.testing.assert_allclose(port[0], jax_flow[0], **FLOW_TOL)
+    np.testing.assert_allclose(port[1], jax_flow[1] * factor, **FLOW_TOL)
+    assert not np.allclose(port[1], jax_flow[1], **FLOW_TOL)
 
 
 def _frame_inputs(view):
@@ -206,9 +261,7 @@ def test_banded_history_with_reprojection():
     assert cfg.tiled and not band.tiled
     assert bool(gp.gi_reproject)
     fn = tiling.sharded_render(cfg, 2)
-    keep = torch.ones(cfg.rt_height, dtype=torch.bool)
-    keep[band.rt_height - cfg.gi_filter_passes:
-         band.rt_height + cfg.gi_filter_passes] = False
+    keep = band_edge_rows(cfg, 2)
     h_whole = h_band = pfg.History.zeros(cfg.rt_height, cfg.rt_width, "cpu")
     for f in range(3):
         gp_f = gp._replace(frame_count=torch.tensor(f))
@@ -234,3 +287,92 @@ def test_banded_raster_layers(n):
     whole = pfg.render_frame(r._sb, gp, hist, r.bn_table, cfg, bg_planes=bg)
     banded = tiling.sharded_render(cfg, n)(r._sb, gp, hist, r.bn_table, bg)
     _compare(cfg, n, whole, banded)
+
+
+def _sample_denoiser_port():
+    dev, _, view = port_sample(128, 40, gi_samples=1, denoiser=True,
+                               device="cpu")
+    return dev, view
+
+
+MOVING = {"castle": _castle_port, "sample_denoiser": _sample_denoiser_port}
+
+
+@pytest.fixture(scope="module", params=sorted(MOVING))
+def moving_whole(request):
+    """MOVE_FRAMES frames of a scene with the view turned before each,
+    drawn whole with the history carried: (r, cfg, [gp of each frame],
+    bg, [whole frame outputs])."""
+    dev, view = MOVING[request.param]()
+    dev.draw()  # settles the alpha boost
+    r = view._renderer
+    cfg = r._last_cfg
+    bg = r._background_planes(cfg)
+    vm0 = view.view_matrix.copy()
+    gps, wholes = [], []
+    hist = pfg.History.zeros(cfg.rt_height, cfg.rt_width, "cpu")
+    for f in range(MOVE_FRAMES):
+        view.set_perspective(turned(vm0, f + 1), view.fov_radians,
+                             view.near_dist, view.far_dist)
+        gp = r._global_params(cfg)._replace(frame_count=torch.tensor(f))
+        assert not torch.equal(gp.prev_view_proj, gp.view_proj)
+        whole = pfg.render_frame(r._sb, gp, hist, r.bn_table, cfg,
+                                 bg_planes=bg)
+        flow = pfg.to_image(cfg, whole.gbuffers.flow)
+        assert float(flow.abs().max()) >= 1.0, f"frame {f}: flow below a pixel"
+        assert float(flow[1].abs().max()) >= 1.0, f"frame {f}: no vertical flow"
+        hist = whole.history
+        gps.append(gp)
+        wholes.append(whole)
+    return r, cfg, gps, bg, wholes
+
+
+def band_edge_rows(cfg, n):
+    """Rows to keep in the image comparison: with the denoiser, those
+    farther than gi_filter_passes from a band edge (the GI filter sees
+    only its band); else None (every row)."""
+    if not cfg.denoiser_enabled:
+        return None
+    band = tiling.shard_config(cfg, n)
+    keep = torch.ones(cfg.rt_height, dtype=torch.bool)
+    for b in range(1, n):
+        lo = b * band.rt_height
+        keep[lo - cfg.gi_filter_passes: lo + cfg.gi_filter_passes] = False
+    return keep
+
+
+def compare_moving(cfg, n, whole, banded):
+    """_compare, and the flow, depth and history planes (every row: the
+    GI filter writes none of them) within the same bounds."""
+    _compare(cfg, n, whole, banded, keep_rows=band_edge_rows(cfg, n))
+    planes = [("flow", whole.gbuffers.flow, banded.gbuffers.flow),
+              ("depth", whole.gbuffers.depth, banded.gbuffers.depth)]
+    planes += [(f"history.{name}", w, b) for name, w, b in
+               zip(pfg.History._fields, whole.history, banded.history)]
+    for name, w, b in planes:
+        diff = (pfg.to_image(cfg, w) - tiling.to_image_banded(cfg, n, b)).abs()
+        assert float(diff.mean()) < MEAN_TOL, name
+        assert float(diff.max()) < MAX_TOL, name
+
+
+def draw_moving(fn, r, gps, bg, cfg, replicate=lambda h: h):
+    """fn's frames over the gps of moving_whole, the history carried
+    (through `replicate`) from zeros."""
+    hist = pfg.History.zeros(cfg.rt_height, cfg.rt_width, "cpu")
+    outs = []
+    for gp in gps:
+        out = fn(r._sb, gp, replicate(hist), r.bn_table, bg)
+        hist = out.history
+        outs.append(out)
+    return outs
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_moving_camera_bands_match_whole(moving_whole, n):
+    r, cfg, gps, bg, wholes = moving_whole
+    outs = draw_moving(tiling.sharded_render(cfg, n), r, gps, bg, cfg)
+    for f, (whole, banded) in enumerate(zip(wholes, outs)):
+        try:
+            compare_moving(cfg, n, whole, banded)
+        except AssertionError as exc:
+            raise AssertionError(f"frame {f}: {exc}") from exc

@@ -5,6 +5,10 @@
 - The low-res planes: the port feeds framegraph.to_image of depth, flow
   and reactive; at a tiled size (8x128: two 8x64 tiles side by side) the
   JAX trainer's reshape of the same tile-ordered planes differs.
+- Each pair is a camera cut: the port's flow planes are zero (a still
+  camera's on a static scene) though the camera moved between pairs;
+  the JAX trainer re-poses its views with can_reproject on, so its flow
+  is the motion from the previous pair's unrelated camera.
 - From the same Flax-initialised parameters (carried across as numpy,
   every layer's kernel and bias made non-zero so every gradient is), a
   batch of 2 at 16x16 -> 32x32: the loss within 1e-5 and every gradient
@@ -38,6 +42,7 @@ from rt64tpu.models import train_upscaler as jtr
 from rt64tpu_torch.models import learned_upscaler as plu
 from rt64tpu_torch.models import train_upscaler as ptr
 from rt64tpu_torch.ops import filters
+from rt64tpu_torch.ops import math3d as pmath3d
 from rt64tpu_torch.pipeline import framegraph as fg
 
 B, H, W, DH, DW = 2, 16, 16, 32, 32
@@ -62,6 +67,7 @@ class _StandIn:
 
     def __init__(self, frame=None):
         self.cameras = []
+        self.can_reproject = []
         self.frame = frame
 
     def __call__(self, width, height, **kw):
@@ -72,8 +78,11 @@ class _StandIn:
                 depth=np.zeros(n, np.float32), flow=np.zeros((2, n), np.float32),
                 reactive=np.zeros(n, np.float32)))
         view = types.SimpleNamespace(_renderer=types.SimpleNamespace(_last=frame))
-        view.set_perspective = lambda vm, fov, *a: self.cameras.append(
-            (np.array(vm), fov))
+        def set_perspective(vm, fov, near, far, can_reproject=True):
+            self.cameras.append((np.array(vm), fov))
+            self.can_reproject.append(can_reproject)
+
+        view.set_perspective = set_perspective
         return types.SimpleNamespace(draw=lambda: None), None, view
 
 
@@ -98,8 +107,9 @@ def test_camera_draws_match_jax(monkeypatch, kind, seed0):
 
 
 def test_pairs_feed_image_planes(monkeypatch):
-    """The port's low-res planes are to_image of the frame's planes; the
-    JAX trainer, fed the same frame, reshapes the tile order."""
+    """The port's low-res planes are to_image of the frame's planes
+    (frame_inputs), in a pair and on a moving camera's frame; the JAX
+    trainer, fed the moving frame, reshapes the tile order."""
     from rt64tpu_torch.utils import testscenes
 
     lo, hi = (8, 128), (16, 256)
@@ -112,29 +122,61 @@ def test_pairs_feed_image_planes(monkeypatch):
         return out
 
     monkeypatch.setattr(testscenes, "build_sample_scene", recording)
-    # Two cameras: the second frame has flow (the camera moved).
+    # Two cameras: the frame holds the second one's planes.
     _, (inputs, target) = ptr.render_pairs(2, "sample", lo=lo, hi=hi, seed0=3,
                                            device="cpu")
-    view = built[0][2]
-    out, cfg = view._renderer._last, view._renderer._last_cfg
-    assert cfg.tiled and (cfg.rt_height, cfg.rt_width) == lo
-    g = out.gbuffers
-    planes = dict(depth=g.depth, flow=g.flow, reactive=g.reactive)
-    for k, plane in planes.items():
+    dev, _, view = built[0]
+
+    def last_planes():
+        out, cfg = view._renderer._last, view._renderer._last_cfg
+        assert cfg.tiled and (cfg.rt_height, cfg.rt_width) == lo
+        g = out.gbuffers
+        return out, cfg, dict(depth=g.depth, flow=g.flow, reactive=g.reactive)
+
+    out, cfg, cut = last_planes()
+    for k, plane in cut.items():
         assert np.array_equal(inputs[k], fg.to_image(cfg, plane).numpy()), k
     assert np.array_equal(inputs["rt_color"], out.rt_output.numpy())
     assert target.shape == (3,) + hi
+
+    # The same view turned, with reprojection on: a moving camera's flow.
+    view.set_perspective(pmath3d.turn_view(view.view_matrix, 0.03, 0.05),
+                         view.fov_radians, view.near_dist, view.far_dist, True)
+    dev.draw()
+    moved = ptr.frame_inputs(view)
+    out, cfg, planes = last_planes()
+    for k, plane in planes.items():
+        assert np.array_equal(moved[k], fg.to_image(cfg, plane).numpy()), k
+    assert np.array_equal(moved["rt_color"], out.rt_output.numpy())
+    assert moved["flow"].min() != moved["flow"].max()
 
     frame = types.SimpleNamespace(
         rt_output=out.rt_output.numpy(),
         gbuffers=types.SimpleNamespace(**{k: p.numpy() for k, p in planes.items()}))
     _, (jinputs, _) = _jax_render_pairs(monkeypatch, _StandIn(frame), 2,
                                         "sample", 3, lo=lo, hi=hi)
-    scrambled = [k for k in planes if not np.array_equal(jinputs[k], inputs[k])]
-    assert all(jinputs[k].shape == inputs[k].shape for k in planes)
+    scrambled = [k for k in planes if not np.array_equal(jinputs[k], moved[k])]
+    assert all(jinputs[k].shape == moved[k].shape for k in planes)
     # A constant plane survives any reshape; the others are scrambled.
-    assert scrambled == [k for k in planes if inputs[k].min() != inputs[k].max()]
+    assert scrambled == [k for k in planes if moved[k].min() != moved[k].max()]
     assert {"depth", "flow"} <= set(scrambled)
+
+
+def test_pairs_are_camera_cuts(monkeypatch):
+    """Every pair's flow is a still camera's (zero on the static sample
+    scene), though the camera moves from pair to pair; the JAX trainer
+    keeps reprojection on across its pairs' unrelated cameras."""
+    pairs = ptr.render_pairs(3, "sample", lo=(8, 64), hi=(16, 128), seed0=5,
+                             device="cpu")
+    cams = ptr.camera_draws(3, "sample", 5)
+    assert not np.array_equal(cams[0][0], cams[1][0])
+    for i, (inputs, _) in enumerate(pairs):
+        assert inputs["flow"].shape == (2, 8, 64)
+        assert not inputs["flow"].any(), f"pair {i}: flow {abs(inputs['flow']).max()}"
+        assert inputs["depth"].min() != inputs["depth"].max()
+    stand_in = _StandIn()
+    _jax_render_pairs(monkeypatch, stand_in, 3, "sample", 5)
+    assert stand_in.can_reproject == [True] * 6
 
 
 def _params(seed=3):
@@ -314,6 +356,27 @@ def test_training_lowers_the_loss():
     assert all(np.isfinite(losses)) and losses[-1] < losses[0]
     s_net, s_bil = ptr.evaluate(net, batch, DH, DW, "cpu")
     assert 0 < s_bil <= 1 and 0 < s_net <= 1
+
+
+def test_fit_zeroes_the_unseen_inputs():
+    """fit zeroes Conv_0's weights of the channels that are zero in every
+    pair (the flow of camera cuts), which then stay zero: the trained net
+    ignores the flow of a moving camera. The other weights train."""
+    batch = _batch()
+    for inputs, _ in batch:
+        inputs["flow"] = np.zeros_like(inputs["flow"])
+    net = ptr.fresh_net(0)
+    before = [c.weight.detach().clone() for c in net.convs]
+    losses = [float(x) for x in ptr.fit(net, batch, 5, 1e-3, "cpu")]
+    assert len(losses) == 5 and losses[-1] < losses[0]
+    w0 = net.convs[0].weight.detach()
+    assert not w0[:, 4:6].any()
+    for c in (0, 1, 2, 3, 6):
+        assert (w0[:, c] != before[0][:, c]).any(), c
+    for conv, b in zip(net.convs[1:], before[1:]):
+        assert not torch.equal(conv.weight, b)
+    stacked, _ = ptr.stack_batch(batch, "cpu")
+    assert ptr.zero_unseen_inputs(net, stacked).tolist() == [False] * 4 + [True] * 2 + [False]
 
 
 def test_pair_cache_round_trip(tmp_path):

@@ -13,11 +13,18 @@ inputs made from a numpy seed:
   where the port divides; fed their own outputs, the two recurrences
   part by 1.6e-5 after 8 steps. The port's own recurrence stays within
   1e-3 of its reset frame over the 8 static steps (no drift).
-- The learned slot: the shipped weights equal the JAX package's file
-  byte for byte; the CNN residual on a random input with world-scale
-  depth equals JAX's within 2e-6, one bf16 step of its largest value
-  (measured 0: bit-equal); _run within 1e-5; a missing weights file
-  raises.
+- The learned slot: the shipped weights are the port's retrain on the
+  planes serving feeds (ROADMAP queue 3): their sha256, Flax's key order
+  and HWIO kernels, read alike by load_params and the JAX package's
+  get_params, zero weights on the flow channels (the trainer's camera
+  cuts never fed them), and a held-out SSIM above bilinear's on 3 pairs
+  (one of each kind, 48x64 -> 96x128, camera seeds the trainer's corpus
+  does not use). The JAX package's file stays the parity file, read
+  alike by both packages: the tests that hold the port to the JAX
+  package point the port at it (jax_weights). There, the CNN residual
+  on a random input with world-scale depth equals JAX's within 2e-6,
+  one bf16 step of its largest value (measured 0: bit-equal); _run
+  within 1e-5; a missing weights file raises.
 - Frames through each package's Device.draw(), three draws each, RGB8
   SSIM >= 0.99 and max abs <= 2/255: the sample scene at 128x96 with FSR
   performance (render 64x48) plus RCAS and motion blur over a moving
@@ -30,12 +37,14 @@ inputs made from a numpy seed:
   frame (ROADMAP queue 3).
 """
 
+import hashlib
 import os
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from rt64tpu import descriptors as jd
@@ -227,12 +236,75 @@ def test_xess_accumulate_matches(planes, moving):
 # -------------------------------------------------------- the learned slot
 
 
+# The shipped weights: scripts/retrain_study.py's 32 pairs a kind, 2,000
+# steps, fresh_net(0), through train_upscaler.fit (PERF.md §6).
+SHIPPED_SHA256 = "2fea4d8a8bf5309cd3d06e4daaa28d57e539d684686d0a014d621f35ba70fd84"
+# (kernel HWIO shape) of Conv_0 ... Conv_4; each bias has the last axis.
+KERNELS = [(3, 3, 7, 32), (3, 3, 32, 32), (3, 3, 32, 32), (3, 3, 32, 16),
+           (3, 3, 16, 3)]
+
+
+@pytest.fixture
+def jax_weights(monkeypatch):
+    """The port's learned slot on the JAX package's weight file, the
+    parity file of the tests against the JAX package."""
+    monkeypatch.setattr(plus, "PARAMS_PATH", jlus._PARAMS_CACHE)
+    plus._net_on.cache_clear()
+    yield
+    plus._net_on.cache_clear()
+
+
 def test_weights_are_the_jax_packages_file():
+    """The JAX package's weight file, the parity file of the tests against
+    the JAX package (jax_weights): the port's load_params reads it as the
+    JAX package's get_params does."""
     with open(jlus._PARAMS_CACHE, "rb") as f:
-        want = f.read()
+        assert len(f.read()) == 104834
+    leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(jlus.get_params())]
+    for i, (w, b) in enumerate(plus.load_params(jlus._PARAMS_CACHE)):
+        assert np.array_equal(b, leaves[2 * i])
+        assert np.array_equal(w, leaves[2 * i + 1].transpose(3, 2, 0, 1))
+
+
+def test_shipped_weights_file(monkeypatch):
+    """The shipped file: the port's retrain, not the JAX package's file;
+    Flax's key order and HWIO kernels, read alike by both packages; Conv_0
+    takes nothing from the flow channels (4, 5), which the trainer's
+    camera cuts never fed, and something from every other channel."""
     with open(plus.PARAMS_PATH, "rb") as f:
         got = f.read()
-    assert len(got) == 104834 and got == want
+    with open(jlus._PARAMS_CACHE, "rb") as f:
+        assert f.read() != got
+    assert hashlib.sha256(got).hexdigest() == SHIPPED_SHA256
+    flat = np.load(plus.PARAMS_PATH)
+    assert flat.files == [f"{i:04d}" for i in range(10)]
+    for i, shape in enumerate(KERNELS):
+        assert flat[f"{2 * i:04d}"].shape == shape[-1:]
+        assert flat[f"{2 * i + 1:04d}"].shape == shape
+        assert flat[f"{2 * i + 1:04d}"].dtype == np.float32
+    conv0 = flat["0001"]
+    assert not conv0[:, :, 4:6].any()
+    assert all(conv0[:, :, c].any() for c in (0, 1, 2, 3, 6))
+    monkeypatch.setattr(jlus, "_PARAMS_CACHE", plus.PARAMS_PATH)
+    monkeypatch.setattr(jlus, "_params", None)
+    leaves = [np.asarray(x) for x in jax.tree_util.tree_leaves(jlus.get_params())]
+    for i, (w, b) in enumerate(plus.load_params()):
+        assert np.array_equal(b, leaves[2 * i])
+        assert np.array_equal(w, leaves[2 * i + 1].transpose(3, 2, 0, 1))
+
+
+def test_shipped_weights_beat_bilinear():
+    """Held-out SSIM against the native 2x frame, one fresh pair of each
+    kind drawn on the CPU (the study's camera seeds)."""
+    from rt64tpu_torch.models import train_upscaler as ptr
+
+    pairs = []
+    for scene, seed0, gi in (("sample", 9007, 0), ("castle", 10007, 0),
+                             ("castle", 11007, 1)):
+        pairs += ptr.render_pairs(1, scene, lo=(48, 64), hi=(96, 128),
+                                  seed0=seed0, gi=gi, device="cpu")
+    s_net, s_bilinear = ptr.evaluate(plus.get_net("cpu"), pairs, 96, 128, "cpu")
+    assert s_net > s_bilinear
 
 
 def test_missing_weights_raise(tmp_path):
@@ -250,7 +322,7 @@ def cnn_input():
     return x
 
 
-def test_cnn_residual_matches(cnn_input):
+def test_cnn_residual_matches(cnn_input, jax_weights):
     want = np.asarray(jlus._model.apply(
         jlus.get_params(), jnp.asarray(np.moveaxis(cnn_input, 0, -1))))
     want = np.moveaxis(want, -1, 0)
@@ -260,7 +332,7 @@ def test_cnn_residual_matches(cnn_input):
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=2e-6)
 
 
-def test_learned_run_matches(cnn_input):
+def test_learned_run_matches(cnn_input, jax_weights):
     rng = np.random.default_rng(12)
     rt = rng.uniform(0, 1, (3, 48, 64)).astype(np.float32)
     depth = rng.uniform(1, 200, (48, 64)).astype(np.float32)
@@ -319,7 +391,7 @@ def _draw(side, name):
 
 
 @pytest.mark.parametrize("name", sorted(FRAMES))
-def test_frames_match(name):
+def test_frames_match(name, jax_weights):
     (w, h), upscaler, _, render, sharpness, blur = FRAMES[name]
     j = _draw("jax", name)
     p = _draw("port", name)
@@ -344,7 +416,7 @@ def test_upscaler_support():
     assert not view.get_upscaler_support(0x5)
 
 
-def test_upscale_steps_from_frame_outputs():
+def test_upscale_steps_from_frame_outputs(jax_weights):
     """temporal_upscale_step and learned_upscale, driven from a drawn
     frame's outputs: a fresh history gives the bilinear upscale."""
     dev, _, view = pts.build_sample_scene(128, 96, gi_samples=0, device="cpu",
