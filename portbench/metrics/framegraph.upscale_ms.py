@@ -1,0 +1,23 @@
+"""Frame graph, the upscale slot (pipeline/framegraph.py upscale,
+models/upscaler.py, models/learned_upscaler.py): ms a frame of the
+port's `rt64.pass.upscale` stage, the upscale block: FSR's temporal
+accumulation or the learned net to the display size, then RCAS. Timed
+and reduced as framegraph.primary_ms (utils/profiling.py stage timers:
+total over the profiled Device.draw calls over their count; None
+without the record, with other frames than the profiled ones, or where
+the stage never ran)."""
+
+UNIT = "ms"
+STAGE = "rt64.pass.upscale"
+
+
+def read(td):
+    try:
+        from rt64tpu_torch.utils.profiling import frame_stats
+    except ImportError:  # a program without the stage record
+        return None
+    stats = frame_stats()
+    frames = stats["frames"]
+    if not frames or frames != len(td.frames) or STAGE not in stats["stage_ms"]:
+        return None
+    return stats["stage_ms"][STAGE] / frames

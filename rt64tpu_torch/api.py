@@ -13,7 +13,6 @@ is the CUDA card unless the caller asks for the CPU.
 from __future__ import annotations
 
 import threading
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -24,6 +23,7 @@ from rt64tpu_torch.devices import indexed
 from rt64tpu_torch.limits import SceneLimits
 from rt64tpu_torch.ops import math3d
 from rt64tpu_torch.ops.combiner import CombinerParams, decode_combiner
+from rt64tpu_torch.utils import profiling
 
 
 def resolve_device(device=None) -> torch.device:
@@ -56,7 +56,6 @@ class Device:
         self.shaders: List[Shader] = []
         self.inspector: Optional[Inspector] = None
         self.frame_count = 0
-        self.last_frame_time_ms = 0.0
         self._lock = threading.Lock()
 
     # -- registries -------------------------------------------------------
@@ -75,8 +74,7 @@ class Device:
     # -- frame loop ---------------------------------------------------------
     def draw(self, vsync_interval: int = 1, delta_time_ms: float = 1000.0 / 60.0):
         """RT64_DrawDevice (rt64_device.cpp:1027-1083, 1239-1246)."""
-        t0 = time.perf_counter()
-        with self._lock:
+        with profiling.span("rt64.draw"), self._lock:
             for scene in self.scenes:
                 scene.update()
             for scene in self.scenes:
@@ -84,7 +82,7 @@ class Device:
             if self.inspector is not None:
                 self.inspector.render()
             self.frame_count += 1
-        self.last_frame_time_ms = (time.perf_counter() - t0) * 1e3
+        profiling.count_frame()
 
     def destroy(self):
         self.scenes.clear()
@@ -115,20 +113,21 @@ class Mesh:
         self.mesh_id = device._register_mesh(self)
 
     def set_mesh(self, vertex_array, vertex_count: int, vertex_stride: int, index_array):
-        buf = np.frombuffer(
-            np.ascontiguousarray(vertex_array).tobytes()
-            if isinstance(vertex_array, np.ndarray)
-            else bytes(vertex_array),
-            dtype=np.uint8,
-        )
-        if buf.size < vertex_count * vertex_stride:
-            raise ValueError("vertex buffer shorter than count * stride")
-        self.raw_vertices = buf[: vertex_count * vertex_stride].copy()
-        self.vertex_count = vertex_count
-        self.vertex_stride = vertex_stride
-        self.indices = np.asarray(index_array, np.uint32).reshape(-1, 3)
-        self.version += 1
-        self._parsed_cache.clear()
+        with profiling.span("rt64.api.set_mesh"):
+            buf = np.frombuffer(
+                np.ascontiguousarray(vertex_array).tobytes()
+                if isinstance(vertex_array, np.ndarray)
+                else bytes(vertex_array),
+                dtype=np.uint8,
+            )
+            if buf.size < vertex_count * vertex_stride:
+                raise ValueError("vertex buffer shorter than count * stride")
+            self.raw_vertices = buf[: vertex_count * vertex_stride].copy()
+            self.vertex_count = vertex_count
+            self.vertex_stride = vertex_stride
+            self.indices = np.asarray(index_array, np.uint32).reshape(-1, 3)
+            self.version += 1
+            self._parsed_cache.clear()
 
     def parsed(self, layout_key: tuple) -> dict:
         """Decode interleaved vertices for a shader's vertex layout.
@@ -284,13 +283,15 @@ class Scene:
 
     def update(self):
         """Scene::update (rt64_scene.cpp:54-62)."""
-        for view in self.views:
-            view.update()
+        with profiling.span("rt64.scene.update"):
+            for view in self.views:
+                view.update()
 
     def render(self, delta_time_ms: float):
         """Scene::render (rt64_scene.cpp:64-72)."""
-        for view in self.views:
-            view.render(delta_time_ms)
+        with profiling.span("rt64.scene.render"):
+            for view in self.views:
+                view.render(delta_time_ms)
 
 
 class Instance:
@@ -304,9 +305,10 @@ class Instance:
         scene.instances.append(self)
 
     def set_description(self, desc: d.InstanceDesc):
-        if desc.alt_texture is None and self._alt_texture is not None:
-            desc.alt_texture = self._alt_texture
-        self.desc = desc
+        with profiling.span("rt64.api.set_instance"):
+            if desc.alt_texture is None and self._alt_texture is not None:
+                desc.alt_texture = self._alt_texture
+            self.desc = desc
 
     def set_alt_texture(self, texture):
         """Bind the TEXEL1 texture (sticky across set_description calls).
@@ -352,11 +354,12 @@ class View:
         can_reproject: bool = True,
     ):
         """SetViewPerspective (rt64_view.cpp:1749-1767)."""
-        self.view_matrix = np.asarray(view_matrix, np.float32).reshape(4, 4)
-        self.fov_radians = float(fov_radians)
-        self.near_dist = float(near_dist)
-        self.far_dist = float(far_dist)
-        self.can_reproject = bool(can_reproject)
+        with profiling.span("rt64.api.set_view"):
+            self.view_matrix = np.asarray(view_matrix, np.float32).reshape(4, 4)
+            self.fov_radians = float(fov_radians)
+            self.near_dist = float(near_dist)
+            self.far_dist = float(far_dist)
+            self.can_reproject = bool(can_reproject)
 
     def set_description(self, desc: d.ViewDesc):
         self.desc = desc

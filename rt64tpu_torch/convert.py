@@ -18,13 +18,14 @@ import torch
 from rt64tpu_torch.pipeline import framegraph as fg
 from rt64tpu_torch.pipeline.scene_buffers import (RasterHost, SceneBuffers,
                                                   ShadeFeatures)
+from rt64tpu_torch.utils import profiling
 
 
 def _tensor(a, device) -> torch.Tensor:
     a = np.asarray(a)
     if a.dtype == np.uint32:
         a = a.astype(np.int64)
-    return torch.from_numpy(np.array(a)).to(device)
+    return profiling.upload(np.array(a), device)
 
 
 def scene_buffers_from_numpy(fields: dict, features, device) -> SceneBuffers:

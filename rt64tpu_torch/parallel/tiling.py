@@ -46,6 +46,7 @@ from rt64tpu_torch.devices import indexed
 from rt64tpu_torch.ops import tracer_cuda
 from rt64tpu_torch.pipeline import framegraph as fg
 from rt64tpu_torch.pipeline.scene_buffers import SceneBuffers, scene_buffers_to
+from rt64tpu_torch.utils import profiling
 
 
 def shard_config(cfg: fg.RenderConfig, n_bands: int) -> fg.RenderConfig:
@@ -243,11 +244,13 @@ def sharded_render(cfg: fg.RenderConfig, n_bands: int, devices=None,
         done = []
         errors = [None] * len(workers)
         stop = threading.Event()
+        recording = profiling.recording()
 
         def work(i):
             dev = workers[i]
             try:
                 with ExitStack() as on:
+                    on.enter_context(profiling.inherit_recording(recording))
                     if card:
                         on.enter_context(torch.cuda.device(dev))
                         on.enter_context(torch.cuda.stream(streams[i]))

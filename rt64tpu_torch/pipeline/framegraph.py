@@ -41,6 +41,7 @@ from rt64tpu_torch.ops import tracer_cuda
 from rt64tpu_torch.ops import vecmath as vm
 from rt64tpu_torch.pipeline import rows as R
 from rt64tpu_torch.pipeline.scene_buffers import SceneBuffers
+from rt64tpu_torch.utils import profiling
 
 EPSILON = 1e-6
 APPLY_LIGHTS_MINIMUM_ALPHA = 0.5  # Constants.hlsli
@@ -1301,71 +1302,77 @@ def render_frame(
     h, w = cfg.rt_height, cfg.rt_width
     n = h * w
     dev = gp.view.device
+    profiling.count_render()
 
-    tri_rows, rows_t = shade_ops.build_tri_rows(sb)
-    trace_scene = make_trace_scene(sb, rows_t, cfg.alpha_cap)
+    with profiling.stage("rt64.pass.setup", dev):
+        tri_rows, rows_t = shade_ops.build_tri_rows(sb)
+        trace_scene = make_trace_scene(sb, rows_t, cfg.alpha_cap)
 
-    pix, origins, dirs = primary_rays(cfg, gp, row_offset)
-    noise_rand = _noise_rand(cfg, gp, pix)
+        pix, origins, dirs = primary_rays(cfg, gp, row_offset)
+        noise_rand = _noise_rand(cfg, gp, pix)
 
-    # Every blue-noise fetch in the frame reads the regular pixel grid
-    # at a uniform frame index: one 64x64 tile repeated over the screen.
-    swz = None
-    if cfg.tiled:
-        swz = lambda plane: torch.stack(
-            [_from_image_1(cfg, plane[..., c]) for c in range(3)], dim=-1
-        )
-    bn = bluenoise.grid_sampler(bn_table, w, h, row_offset=row_offset,
-                                swizzle=swz)
+        # Every blue-noise fetch in the frame reads the regular pixel grid
+        # at a uniform frame index: one 64x64 tile repeated over the screen.
+        swz = None
+        if cfg.tiled:
+            swz = lambda plane: torch.stack(
+                [_from_image_1(cfg, plane[..., c]) for c in range(3)], dim=-1
+            )
+        bn = bluenoise.grid_sampler(bn_table, w, h, row_offset=row_offset,
+                                    swizzle=swz)
 
-    bg_planes, bg_color = background(sb, gp, cfg, bg_planes, row_offset)
+        bg_planes, bg_color = background(sb, gp, cfg, bg_planes, row_offset)
 
-    t_min = torch.full((n,), tracer.RAY_MIN_DISTANCE, device=dev)
-    t_max = torch.full((n,), tracer.RAY_MAX_DISTANCE, device=dev)
-    g, tl_plan, trans_lit_sum = primary_pass(
-        sb, gp, cfg, origins, dirs, t_min, t_max, bg_color,
-        tri_rows, trace_scene, pix, bn, noise_rand,
-    )
-
-    # ONE batched shadow launch for the transparent light + all DI
-    # rounds (PrimaryRayGen.hlsl:139-147 + DirectRayGen.hlsl:49-51).
-    di_ctx = lighting.ctx_from_rows(g.row, g.instance >= 0)
-    di_plan = lighting.plan_lights(
-        sb, pix, bn, gp.frame_count, g.view_dir, g.position,
-        g.normal, g.specular, di_ctx, max_light_count=cfg.max_lights,
-        di_samples=cfg.di_samples, noise_rand=noise_rand,
-    )
-    plans = [di_plan] if tl_plan is None else [tl_plan, di_plan]
-    factors, light_drop = lighting.trace_plans(
-        plans, sb, tri_rows, trace_scene, cfg.k_shadow,
-        opaque_fn=tracer_cuda.make_shadow_opaque_fn(),
-        alpha_compact=max(1024, (n // 32) * cfg.alpha_shade_boost),
-        shade_boost=cfg.alpha_shade_boost,
-    )
-    di_f = factors[-1]
-    if tl_plan is not None:
-        tl_light = lighting.finish_lights(tl_plan, factors[0])
-        transparent = g.transparent + trans_lit_sum * tl_light
-        g = g._replace(
-            transparent=transparent,
-            reactive=torch.clamp(transparent.amax(dim=0), max=0.9),
+    with profiling.stage("rt64.pass.primary", dev):
+        t_min = torch.full((n,), tracer.RAY_MIN_DISTANCE, device=dev)
+        t_max = torch.full((n,), tracer.RAY_MAX_DISTANCE, device=dev)
+        g, tl_plan, trans_lit_sum = primary_pass(
+            sb, gp, cfg, origins, dirs, t_min, t_max, bg_color,
+            tri_rows, trace_scene, pix, bn, noise_rand,
         )
 
-    alpha_dropped = g.alpha_dropped + light_drop
-    direct_accum = direct_pass(
-        cfg, gp, g, di_ctx, lighting.finish_lights(di_plan, di_f),
-    )
-    indirect_accum, i_drop = indirect_pass(
-        sb, tri_rows, trace_scene, cfg, gp, g, history, pix, bn, noise_rand,
-        bg_planes, row_offset,
-    )
-    alpha_dropped = alpha_dropped + i_drop
+    with profiling.stage("rt64.pass.direct", dev):
+        # ONE batched shadow launch for the transparent light + all DI
+        # rounds (PrimaryRayGen.hlsl:139-147 + DirectRayGen.hlsl:49-51).
+        di_ctx = lighting.ctx_from_rows(g.row, g.instance >= 0)
+        di_plan = lighting.plan_lights(
+            sb, pix, bn, gp.frame_count, g.view_dir, g.position,
+            g.normal, g.specular, di_ctx, max_light_count=cfg.max_lights,
+            di_samples=cfg.di_samples, noise_rand=noise_rand,
+        )
+        plans = [di_plan] if tl_plan is None else [tl_plan, di_plan]
+        factors, light_drop = lighting.trace_plans(
+            plans, sb, tri_rows, trace_scene, cfg.k_shadow,
+            opaque_fn=tracer_cuda.make_shadow_opaque_fn(),
+            alpha_compact=max(1024, (n // 32) * cfg.alpha_shade_boost),
+            shade_boost=cfg.alpha_shade_boost,
+        )
+        di_f = factors[-1]
+        if tl_plan is not None:
+            tl_light = lighting.finish_lights(tl_plan, factors[0])
+            transparent = g.transparent + trans_lit_sum * tl_light
+            g = g._replace(
+                transparent=transparent,
+                reactive=torch.clamp(transparent.amax(dim=0), max=0.9),
+            )
+
+        alpha_dropped = g.alpha_dropped + light_drop
+        direct_accum = direct_pass(
+            cfg, gp, g, di_ctx, lighting.finish_lights(di_plan, di_f),
+        )
+    with profiling.stage("rt64.pass.indirect", dev):
+        indirect_accum, i_drop = indirect_pass(
+            sb, tri_rows, trace_scene, cfg, gp, g, history, pix, bn,
+            noise_rand, bg_planes, row_offset,
+        )
+        alpha_dropped = alpha_dropped + i_drop
     if cfg.refraction_enabled:
-        refraction_rgb, r_drop = refraction_pass(
-            sb, tri_rows, trace_scene, cfg, gp, g, pix, bn, noise_rand,
-            bg_color,
-        )
-        alpha_dropped = alpha_dropped + r_drop
+        with profiling.stage("rt64.pass.refraction", dev):
+            refraction_rgb, r_drop = refraction_pass(
+                sb, tri_rows, trace_scene, cfg, gp, g, pix, bn, noise_rand,
+                bg_color,
+            )
+            alpha_dropped = alpha_dropped + r_drop
     else:
         refraction_rgb = torch.zeros((3, n), device=dev)
     refl = ReflectionState(
@@ -1375,52 +1382,59 @@ def render_frame(
     # Each bounce reads the state the last one wrote
     # (rt64_view.cpp:1417-1436).
     for _ in range(cfg.max_reflections):
-        refl, rf_drop = reflection_pass(
-            sb, tri_rows, trace_scene, cfg, gp, refl, pix, bn, noise_rand,
-            bg_planes,
-        )
-        alpha_dropped = alpha_dropped + rf_drop
+        with profiling.stage("rt64.pass.reflection", dev):
+            refl, rf_drop = reflection_pass(
+                sb, tri_rows, trace_scene, cfg, gp, refl, pix, bn, noise_rand,
+                bg_planes,
+            )
+            alpha_dropped = alpha_dropped + rf_drop
 
-    # DI denoise is compiled out in the reference (rt64_view.cpp:1439-1443).
-    filtered_direct = direct_accum[:3]
-    if cfg.denoiser_enabled:
-        fi = to_image(cfg, indirect_accum[:3])
-        for _ in range(cfg.gi_filter_passes):
-            fi = filters.gaussian_3x3(fi)
-        filtered_indirect = from_image(cfg, fi)
-    else:
-        filtered_indirect = indirect_accum[:3]
-    rt_rgb = to_image(cfg, filters.compose(
-        g.diffuse_rgb, g.diffuse_a, filtered_direct, filtered_indirect,
-        refl.rgb, refraction_rgb, g.transparent,
-    ))
+    with profiling.stage("rt64.pass.compose", dev):
+        # DI denoise is compiled out in the reference
+        # (rt64_view.cpp:1439-1443).
+        filtered_direct = direct_accum[:3]
+        if cfg.denoiser_enabled:
+            fi = to_image(cfg, indirect_accum[:3])
+            for _ in range(cfg.gi_filter_passes):
+                fi = filters.gaussian_3x3(fi)
+            filtered_indirect = from_image(cfg, fi)
+        else:
+            filtered_indirect = indirect_accum[:3]
+        rt_rgb = to_image(cfg, filters.compose(
+            g.diffuse_rgb, g.diffuse_a, filtered_direct, filtered_indirect,
+            refl.rgb, refraction_rgb, g.transparent,
+        ))
 
     # Upscale to the display size (rt64_view.cpp:114-141, 1584-1618);
     # the temporal state rides the frame outputs. Motion blur, or the
     # debug view, replaces the display image after.
-    disp, new_temporal = upscale(cfg, gp, g, rt_rgb, temporal)
-    if visualization_mode == 0:
-        if cfg.motion_blur_enabled:
-            flow_disp = filters.bilinear_resize(
-                to_image(cfg, g.flow), cfg.display_height, cfg.display_width)
-            disp = filters.motion_blur(
-                disp, flow_disp, (float(w), float(h)),
-                gp.motion_blur_strength, cfg.motion_blur_samples)
-    else:
-        disp = debug_visualization(
-            visualization_mode, cfg, g, direct_accum, indirect_accum,
-            filtered_direct, filtered_indirect, refl.rgb, refraction_rgb,
-        )
+    with profiling.stage("rt64.pass.upscale", dev):
+        disp, new_temporal = upscale(cfg, gp, g, rt_rgb, temporal)
+    with profiling.stage("rt64.pass.post", dev):
+        if visualization_mode == 0:
+            if cfg.motion_blur_enabled:
+                flow_disp = filters.bilinear_resize(
+                    to_image(cfg, g.flow), cfg.display_height,
+                    cfg.display_width)
+                disp = filters.motion_blur(
+                    disp, flow_disp, (float(w), float(h)),
+                    gp.motion_blur_strength, cfg.motion_blur_samples)
+        else:
+            disp = debug_visualization(
+                visualization_mode, cfg, g, direct_accum, indirect_accum,
+                filtered_direct, filtered_indirect, refl.rgb, refraction_rgb,
+            )
 
-    # Raster foreground (HUD) over the display image
-    # (rt64_view.cpp:1657-1661), row-major at display size; a band draws
-    # its rows of the whole display.
-    if sb.raster_fg.shape[0]:
-        dh, dw = disp.shape[1], disp.shape[2]
-        disp_rgba = torch.cat([disp, torch.ones((1, dh, dw), device=dev)], 0)
-        disp = _raster_layer(disp_rgba, sb, "fg",
-                             row_offset=row_offset * dh // h,
-                             full_height=cfg.display_grid_height)[:3]
+        # Raster foreground (HUD) over the display image
+        # (rt64_view.cpp:1657-1661), row-major at display size; a band
+        # draws its rows of the whole display.
+        if sb.raster_fg.shape[0]:
+            dh, dw = disp.shape[1], disp.shape[2]
+            disp_rgba = torch.cat([disp, torch.ones((1, dh, dw), device=dev)],
+                                  0)
+            disp = _raster_layer(disp_rgba, sb, "fg",
+                                 row_offset=row_offset * dh // h,
+                                 full_height=cfg.display_grid_height)[:3]
 
     return FrameOutputs(
         image=disp,

@@ -35,6 +35,7 @@ from rt64tpu_torch.ops.mipmaps import generate_mips
 from rt64tpu_torch.ops.raster import (RR_IN1, RR_IN2, RR_INST, RR_POS, RR_UV,
                                       RR_WIDTH)
 from rt64tpu_torch.pipeline import rows as R
+from rt64tpu_torch.utils import profiling
 
 
 class ShadeFeatures(NamedTuple):
@@ -190,7 +191,7 @@ class ScenePacker:
         self.alpha_triangle_count = 0
 
     def _up(self, a: np.ndarray) -> torch.Tensor:
-        return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+        return profiling.upload(np.ascontiguousarray(a), self.device)
 
     # -- texture quad pool ---------------------------------------------------
     def pack_quad_pool(self, instances: List[Instance]):
@@ -565,7 +566,7 @@ class ScenePacker:
             has_raster_bg=rb_count > 0,
         )
         dev = self.device
-        i32 = lambda v: torch.tensor(v, dtype=torch.int32, device=dev)
+        i32 = lambda v: profiling.upload(np.asarray(v, np.int32), dev)
         return SceneBuffers(
             **self._dev_geom,
             instance_rows=self._up(irows),

@@ -27,6 +27,7 @@ from rt64tpu_torch.models import upscaler as ups
 from rt64tpu_torch.ops import bluenoise, filters, math3d
 from rt64tpu_torch.pipeline import framegraph as fg
 from rt64tpu_torch.pipeline.scene_buffers import ScenePacker
+from rt64tpu_torch.utils import profiling
 from rt64tpu_torch.utils.log import breadcrumb
 
 MAX_ALPHA_BOOST = 16
@@ -121,14 +122,17 @@ class ViewRenderer:
         ]
         everything = active + raster
         self.active_instances = active
-        self.packer.pack_quad_pool(everything)
-        self._sky_rec = self.packer.add_env_texture(view.sky_plane_texture)
-        self.packer.set_sky_plane_dense(view.sky_plane_texture)
-        self.packer.pack_geometry(active)
-        self._sb = self.packer.pack_frame(
-            everything, scene.lights_array(), raster_bg=raster_bg,
-            raster_fg=raster_fg,
-        )
+        with profiling.span("rt64.pack.quad_pool"):
+            self.packer.pack_quad_pool(everything)
+            self._sky_rec = self.packer.add_env_texture(view.sky_plane_texture)
+            self.packer.set_sky_plane_dense(view.sky_plane_texture)
+        with profiling.span("rt64.pack.geometry"):
+            self.packer.pack_geometry(active)
+        with profiling.span("rt64.pack.frame"):
+            self._sb = self.packer.pack_frame(
+                everything, scene.lights_array(), raster_bg=raster_bg,
+                raster_fg=raster_fg,
+            )
 
     # -- render: the View::render analog ------------------------------------
     def render(self, delta_time_ms: float):
@@ -151,7 +155,8 @@ class ViewRenderer:
                 fresh = True
         else:
             self._temporal = None
-        gp = self._global_params(cfg, temporal_reset=fresh)
+        with profiling.span("rt64.view.params"):
+            gp = self._global_params(cfg, temporal_reset=fresh)
         out = self._frame(cfg, gp)
         prev = self._last.image if self._last is not None else None
         self._prev_image = (prev if prev is not None
@@ -172,19 +177,22 @@ class ViewRenderer:
             self._alpha_boost = min(self._alpha_boost * 2, MAX_ALPHA_BOOST)
             breadcrumb(f"alpha shade capacity overflow; boost -> "
                        f"{self._alpha_boost}; re-rendering frame")
-            cfg = self._config()
-            out = self._frame(cfg, gp)
+            with profiling.span("rt64.view.rerender"):
+                cfg = self._config()
+                out = self._frame(cfg, gp)
         self._last, self._last_cfg = out, cfg
         # The RGB8 present: packed on the device, one readback.
-        self._present(fg.present_rgb8(out.image).cpu().numpy(),
-                      _pick_planes(out), cfg)
+        with profiling.stage("rt64.view.present", self.device):
+            self._present(fg.present_rgb8(out.image).cpu().numpy(),
+                          _pick_planes(out), cfg)
 
     def _render_pipelined(self, out, cfg):
         """Queue this frame and present the one `pipeline_depth` draws
         older, as the JAX package does (the ring presents nothing until
         it holds depth + 1 frames). The in-flight frame is not read: its
         present and drop scalar are copied to the host behind it."""
-        self._pending.append(self._enqueue(out, cfg))
+        with profiling.stage("rt64.view.present", self.device):
+            self._pending.append(self._enqueue(out, cfg))
         if len(self._pending) < self.pipeline_depth + 1:
             return
         done = self._pending.pop(0)

@@ -3,10 +3,25 @@
 The reference's only tracing is a breadcrumb log compiled out in
 release (RT64_LOG_* macros, rt64_common.h:153-162). Here:
 
-  * FrameTimer: wall time per stage, synchronising the device of a
-    CUDA tensor the stage names, for coarse breakdowns.
+  * span(name): a host range at a layer boundary (`rt64.draw`,
+    `rt64.scene.update`, `rt64.pack.geometry`, ...: README lists them).
+    torch.profiler records it as a CPU event on its own clock, so a
+    profile names the host's time, and the device's idle gaps, after
+    the innermost span open. It is a FUNCTION-scope range: unlike
+    record_function's USER-scope one it puts nothing on the device's
+    timeline. Nesting in time gives each span its parent; a frame's
+    spans lie inside its `rt64.draw`. About 1 us with no profiler on.
+  * stage(name, device): a span that, while a torch profiler records,
+    also times its interval on the device's current stream (two CUDA
+    events, read after the present has waited for the frame or when
+    the record is read; on the CPU, where torch ops are synchronous,
+    the host clock) and adds it to the record.
+  * upload(a, device): the per-frame host->device copy of the object
+    model and the view driver; its bytes go to the record while a
+    profiler records.
+  * frame_stats(): the record.
   * trace(): torch.profiler around a block, a chrome trace written
-    into log_dir.
+    into log_dir (with the spans).
   * stage_bench(): device time per step of `iters` steps back to back,
     between two CUDA events (the host clock on the CPU).
 """
@@ -15,43 +30,181 @@ from __future__ import annotations
 
 import contextlib
 import os
+import threading
 import time
-from collections import OrderedDict
 
+import numpy as np
 import torch
+from torch._C._autograd import _profiler_enabled
+from torch._C._profiler import _RecordFunctionFast
+
+_local = threading.local()
 
 
-def _sync(tensors):
-    """Wait for the CUDA devices that hold any tensor in `tensors` (a
-    tensor or a nested tuple/list of them)."""
-    if isinstance(tensors, torch.Tensor):
-        if tensors.is_cuda:
-            torch.cuda.synchronize(tensors.device)
-    elif isinstance(tensors, (tuple, list)):
-        for t in tensors:
-            _sync(t)
+def recording() -> bool:
+    """True while a torch profiler records on this thread, or while the
+    thread works for one that does (inherit_recording)."""
+    return _profiler_enabled() or getattr(_local, "inherited", False)
 
 
-class FrameTimer:
-    """Accumulates per-stage wall times; report() prints a table."""
+@contextlib.contextmanager
+def inherit_recording(on: bool):
+    """Record this thread's stages and uploads as the thread that hands
+    it work would (`on`: its recording()). A torch profiler records the
+    thread that started it, not threads that thread starts: the band
+    workers of parallel/tiling.py take their frame's state with this."""
+    outer = getattr(_local, "inherited", False)
+    _local.inherited = on
+    try:
+        yield
+    finally:
+        _local.inherited = outer
+
+
+def span(name: str):
+    """A host range named `name` for torch.profiler (see the module
+    docstring); use as `with span(name):`."""
+    return _RecordFunctionFast(name)
+
+
+class FrameRecord:
+    """What the frames made while a torch profiler recorded: Device.draw
+    calls (frames), render_frame calls (renders: alpha-boost re-renders
+    and bands included), each stage's ms and calls, and the bytes
+    upload() copied. The whole process's, whatever thread added (band
+    workers add their stages under the same names), under one lock like
+    tracer_cuda.LaunchCounts."""
+
+    _lock = threading.Lock()
 
     def __init__(self):
-        self.times = OrderedDict()
+        self.reset()
 
-    @contextlib.contextmanager
-    def stage(self, name: str, sync_on=None):
-        t0 = time.perf_counter()
+    def reset(self):
+        with self._lock:
+            self.frames = 0
+            self.renders = 0
+            self.upload_bytes = 0
+            self.stage_ms = {}
+            self.stage_calls = {}
+            self._timed = []  # (name, device, start, end): events not yet read
+            self._spare = {}  # device -> timing events to record again
+
+    def add(self, frames: int = 0, renders: int = 0, upload_bytes: int = 0):
+        with self._lock:
+            self.frames += frames
+            self.renders += renders
+            self.upload_bytes += upload_bytes
+
+    def _add_stage(self, name: str, ms: float):
+        self.stage_ms[name] = self.stage_ms.get(name, 0.0) + ms
+        self.stage_calls[name] = self.stage_calls.get(name, 0) + 1
+
+    def add_stage(self, name: str, ms: float):
+        with self._lock:
+            self._add_stage(name, ms)
+
+    def events(self, device) -> list:
+        """Two timing events for a stage on `device`, reused."""
+        with self._lock:
+            spare = self._spare.setdefault(device, [])
+            if len(spare) >= 2:
+                return [spare.pop(), spare.pop()]
+        return [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+    def add_timed(self, name: str, device, start, end):
+        with self._lock:
+            self._timed.append((name, device, start, end))
+
+    def read_events(self, wait: bool = False):
+        """Add the stages whose end event has passed (all of them, waiting
+        for each, with wait) and keep their events for reuse. Without
+        wait nothing here waits: an event query returns at once."""
+        with self._lock:
+            timed, self._timed = self._timed, []
+        if wait:
+            for _, _, _, end in timed:
+                end.synchronize()
+        with self._lock:
+            for entry in timed:
+                name, device, start, end = entry
+                if end.query():
+                    self._add_stage(name, start.elapsed_time(end))
+                    self._spare.setdefault(device, []).extend((start, end))
+                else:
+                    self._timed.append(entry)
+
+    def stats(self) -> dict:
+        self.read_events(wait=True)
+        with self._lock:
+            return dict(frames=self.frames, renders=self.renders,
+                        stage_ms=dict(self.stage_ms),
+                        stage_calls=dict(self.stage_calls),
+                        upload_bytes=self.upload_bytes)
+
+
+record = FrameRecord()
+
+
+@contextlib.contextmanager
+def stage(name: str, device: torch.device):
+    """A span; while a profiler records, also the ms of its interval on
+    `device` (its current stream on a card: the time the stage holds
+    the stream, which is its device time where the device paces the
+    frame and its issue time where the host does), added to the record
+    under `name`. Nothing here waits for the device."""
+    timed = recording()
+    on_card = timed and device.type == "cuda"
+    if on_card:
+        stream = torch.cuda.current_stream(device)
+        start, end = record.events(device)
+        start.record(stream)
+    t0 = time.perf_counter()
+    with _RecordFunctionFast(name):
         yield
-        if sync_on is not None:
-            _sync(sync_on)
-        self.times[name] = self.times.get(name, 0.0) + time.perf_counter() - t0
+    if on_card:
+        end.record(stream)
+        record.add_timed(name, device, start, end)
+    elif timed:
+        record.add_stage(name, (time.perf_counter() - t0) * 1e3)
 
-    def report(self) -> str:
-        total = sum(self.times.values()) or 1.0
-        lines = [f"{'stage':<28}{'ms':>10}{'%':>7}"]
-        for name, t in self.times.items():
-            lines.append(f"{name:<28}{t * 1e3:>10.2f}{100 * t / total:>6.1f}%")
-        return "\n".join(lines)
+
+def count_frame():
+    """The end of a Device.draw: one frame while a profiler records, and
+    the stage events that have passed are read (the present has waited
+    for the frame; the rest are read later)."""
+    if recording():
+        record.add(frames=1)
+        record.read_events()
+
+
+def count_render():
+    """One render_frame call while a profiler records."""
+    if recording():
+        record.add(renders=1)
+
+
+def upload(a, device) -> torch.Tensor:
+    """`a` (a numpy array or a host tensor) as a tensor on `device`. The
+    object model's and the view driver's per-frame host->device copies
+    come here; while a profiler records their bytes are counted (on the
+    CPU, the bytes a card would take)."""
+    t = torch.from_numpy(a) if isinstance(a, np.ndarray) else a
+    if recording():
+        record.add(upload_bytes=t.nbytes)
+    return t.to(device)
+
+
+def frame_stats() -> dict:
+    """{frames, renders, stage_ms: {name: total ms}, stage_calls: {name:
+    calls}, upload_bytes} made while a torch profiler recorded, since
+    the process started or reset_frame_stats(). Waits for the stage
+    events not yet read."""
+    return record.stats()
+
+
+def reset_frame_stats():
+    record.reset()
 
 
 @contextlib.contextmanager
