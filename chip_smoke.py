@@ -12,8 +12,8 @@ Phases (each prints one JSON line; any failure exits non-zero before the
 result line):
   1. card: nvidia-smi's name and power limit (verbatim), TF32 off;
   2. build: nvcc builds every source under csrc/ (packet_tracer.cu: K1/K2,
-     mt_tracer.cu: K3/K4, both over the walk of packet_walk.cuh), build
-     seconds;
+     mt_tracer.cu: K3/K4, both over the walk of packet_walk.cuh;
+     alpha_sweep.cu: the alpha slots' K-hit sweep), build seconds;
   3. K1 (closest hit) against its plain twin (run once) on the castle 640x480
      frame's own primary-ray batch: tri agreement, hit/miss flips,
      t relative and u/v absolute error p99, bias equality, kernel/plain
@@ -24,8 +24,13 @@ result line):
      the CTAs of the persistent grid, the cycles of the longest item and
      block, and order_independent: two production launches, and one with
      the item table reversed, give equal outputs bit for bit;
+  4b. the alpha sweep's kernel against its plain twin (run on the card
+     in slices) on every sweep of that frame: triangle ids exactly equal,
+     t, u, v and bias bit-equal; per launch kernel ms (median of 25),
+     plain ms, and the bound from its live rays and list entries;
   5. main path: 10 castle frames through Device.draw(), with the
-     launch counters set to 0 just before and read just after;
+     launch counters set to 0 just before and read just after (K1, K2
+     and the alpha sweep at least once a frame);
   6. sample scene 320x240 rendered on the card and on the CPU, SSIM;
   6b. K1 and K2 the same way on the regrouped bounce launches of a
      castle GI 1280x720 frame (the ray mix of bench config 3: incoherent
@@ -120,7 +125,9 @@ result line):
      computes it: the DLSS performance frame after 8 draws against the
      native 3840x2160 frame drawn in 4 bands of 540 rows (6 if 4 do not
      fit, and the failed allocation is printed), 8 frames with the
-     history concatenated across the bands; SSIM, peaks, band ms;
+     history concatenated across the bands; SSIM, peaks, band ms; and
+     4b's check on every alpha sweep of the last DLSS draw (1920x1080,
+     the 4K cell's frame);
  17b. multicard: tiling.sharded_render with a device list, one worker
      thread per entry, band b on card b % device_count() (on one card
      every band on card 0, each in its own worker and stream; the line
@@ -208,6 +215,19 @@ FLOPS_K2 = (5, 10, 29, 0, 0)
 # a hit pays, in K3, the key t - bias (1).
 FLOPS_K3 = (14, 10, 16, 6, 1)
 FLOPS_K4 = (14, 10, 16, 6, 0)
+# The alpha sweep (csrc/alpha_sweep.cu) tests every pair of a live ray
+# (t_max >= t_min) and a live list entry (id >= 0). Every such pair pays
+# at least K3's first stage, p = d x e2 and det = e1 . p (14); what a
+# pair pays past it depends on the data and is not counted, so the bound
+# is a floor. Bytes, each once: a ray's origin, direction and interval
+# (32), a hit slot's key, id, u, v and bias (24), a list entry's id,
+# corners, bias and cull flag (49).
+FLOPS_SWEEP_PAIR = FLOPS_K3[0]
+SWEEP_RAY_BYTES, SWEEP_SLOT_BYTES, SWEEP_ENTRY_BYTES = 32, 24, 49
+# Rays a call of the plain twin takes on the card: its (rays x 256)
+# planes at the 4K frame's 4,147,200 shadow lanes would not fit beside
+# the frame. A row's result does not depend on the other rows.
+SWEEP_TWIN_SLICE = 1 << 18
 # The kernels before their redesign (one CTA per block, one ray per
 # thread, no cull below the block): the same launches on an NVIDIA H100
 # 80GB HBM3 at 700 W, ms, with the bound each was then held to. K1/K2's
@@ -291,7 +311,7 @@ def bound_ms(n_bytes, n_flops):
 
 WRAPPERS = ("trace_opaque_blocks", "trace_shadow_blocks",
             "trace_opaque_mt_blocks", "trace_shadow_mt_blocks",
-            "prepare_opaque", "prepare_shadow")
+            "prepare_opaque", "prepare_shadow", "alpha_sweep")
 
 
 def capture_launches(draw):
@@ -512,6 +532,74 @@ def phase_k2(tag, call):
 
     return occlusion_phase(tag, call, tc.trace_shadow_blocks,
                            tc.trace_shadow_plain, FLOPS_K2)
+
+
+def alpha_sweep_phase(tag, calls):
+    """alpha_sweep_kernel against its plain twin, run on the card in
+    slices of SWEEP_TWIN_SLICE rays, on every sweep one draw launched
+    (recorded with the inputs the frame gave it): triangle ids exactly
+    equal, t, u, v and bias bit-equal. Each launch timed (the kernel:
+    median of 25, CUDA events; the twin once) and bounded from its
+    inputs. One line a launch; returns the draw's row, with the sums
+    over its launches as ms, plain_ms and bound_ms."""
+    import torch
+    from rt64tpu_torch.ops import tracer as ptr
+    from rt64tpu_torch.ops import tracer_cuda as tc
+
+    calls = [c for c in calls if c[0][0].shape[1] > 0]
+    check(calls, f"{tag}: the draw launched no alpha sweep")
+    bits = lambda a: a.view(torch.int32) if a.dtype == torch.float32 else a
+    rows = []
+    for i, (args, kw) in enumerate(calls):
+        origins, dirs, t_min, t_max, scene, k, cull = args
+        n = origins.shape[1]
+
+        def twin():
+            parts = [ptr._alpha_sweep_plain(
+                origins[:, a:a + SWEEP_TWIN_SLICE],
+                dirs[:, a:a + SWEEP_TWIN_SLICE], t_min[a:a + SWEEP_TWIN_SLICE],
+                t_max[a:a + SWEEP_TWIN_SLICE], scene, k, cull)
+                for a in range(0, n, SWEEP_TWIN_SLICE)]
+            return [torch.cat([p[j] for p in parts]) for j in range(4)]
+
+        got = tc.alpha_sweep(*args, **kw)
+        want, plain_ms = timed(twin)
+        names = ("t", "tri", "uv", "bias")
+        equal = {m: torch.equal(bits(g), bits(w))
+                 for m, g, w in zip(names, got, want)}
+        errs = {m: float((g.double() - w.double()).abs().max())
+                for m, g, w in zip(names, got, want) if m != "tri"}
+        hits = int((want[1] >= 0).sum())
+        del got, want
+        ms = time_ms(lambda: tc.alpha_sweep(*args, **kw), reps=25)
+        live = int((t_max >= t_min).sum())
+        entries = int((scene.alpha_idx >= 0).sum())
+        a_cap = scene.alpha_idx.shape[0]
+        flops = live * entries * FLOPS_SWEEP_PAIR
+        n_bytes = (n * (SWEEP_RAY_BYTES + k * SWEEP_SLOT_BYTES)
+                   + a_cap * SWEEP_ENTRY_BYTES)
+        bms, by = bound_ms(n_bytes, flops)
+        row = dict(phase=tag, launch=i, rays=n, live_rays=live, k=k,
+                   cull_backface=bool(cull), list_entries=a_cap,
+                   live_entries=entries, hits=hits, bit_equal=equal,
+                   max_abs_err=max(errs.values()), max_abs_err_by_output=errs,
+                   bytes=n_bytes, flops=flops, ms=ms, plain_ms=plain_ms,
+                   bound_ms=bms, bound_by=by)
+        emit(row)
+        check(all(equal.values()),
+              f"{tag} launch {i}: the kernel differs from its twin: {equal}")
+        rows.append(row)
+    dearest = max(rows, key=lambda r: r["bound_ms"])
+    out = dict(phase=f"{tag}_draw", launches=len(rows),
+               rays=[r["rays"] for r in rows],
+               live_rays=[r["live_rays"] for r in rows],
+               max_abs_err=max(r["max_abs_err"] for r in rows),
+               ms=sum(r["ms"] for r in rows),
+               plain_ms=sum(r["plain_ms"] for r in rows),
+               bound_ms=sum(r["bound_ms"] for r in rows),
+               bound_by=dearest["bound_by"])
+    emit(out)
+    return out
 
 
 def phase_k1_k2_bounce():
@@ -875,6 +963,9 @@ def phase_main_path():
     k1, k2 = counts["opaque_launches"], counts["shadow_launches"]
     check(k1 >= MAIN_FRAMES, f"K1 launched {k1} times in {MAIN_FRAMES} frames")
     check(k2 >= MAIN_FRAMES, f"K2 launched {k2} times in {MAIN_FRAMES} frames")
+    sweeps = counts["alpha_sweep_launches"]
+    check(sweeps >= MAIN_FRAMES,
+          f"the alpha sweep launched {sweeps} times in {MAIN_FRAMES} frames")
     check(counts["opaque_mt_launches"] == 0 and counts["shadow_mt_launches"] == 0,
           "the castle frame (below the size switch) launched K3 or K4")
     return row
@@ -1871,10 +1962,11 @@ def phase_bench5_fidelity():
     the DLSS performance frame after NATIVE_FRAMES draws against the
     native 3840x2160 frame of bench.native_banded (bands of 3840x540,
     NATIVE_FRAMES frames, the history concatenated across the bands, at
-    alpha boost 1), SSIM of the uint8 images. The K1 and K2 launches of
-    the first frame's first band are then held against their plain
-    twins: (row, {"k1": row, "k2": row}, (the native RGB8 frame, its
-    alpha drops per frame))."""
+    alpha boost 1), SSIM of the uint8 images. The alpha sweeps of the
+    last DLSS draw, and the K1 and K2 launches of the first frame's first
+    band, are held against their plain twins: (row, {"k1": row,
+    "k2": row}, (the native RGB8 frame, its alpha drops per frame), the
+    sweeps' row)."""
     import torch
     from rt64tpu_torch import bench
     from rt64tpu_torch.utils.ssim import ssim
@@ -1884,14 +1976,16 @@ def phase_bench5_fidelity():
     dev, _, view = bench.build(*rung)
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for _ in range(NATIVE_FRAMES):
+    for _ in range(NATIVE_FRAMES - 1):
         dev.draw()
+    seen = capture_launches(dev.draw)
     dlss_s = time.perf_counter() - t0
     dlss_peak = torch.cuda.max_memory_allocated()
     prod = view.framebuffer()[..., :3].copy()
     cfg = view._renderer._last_cfg
     dlss_render = (cfg.rt_width, cfg.rt_height)
-    del dev, view, cfg
+    sweep = alpha_sweep_phase("alpha_sweep_bench5", seen["alpha_sweep"])
+    del dev, view, cfg, seen
     torch.cuda.empty_cache()
 
     def native(bands):
@@ -1925,7 +2019,8 @@ def phase_bench5_fidelity():
     check(row["prod_max"] > 0 and row["native_max"] > 0,
           "a bench5 fidelity frame is black")
     torch.cuda.empty_cache()
-    return row, kernels_on_largest("native_band", seen), (native_img, drops)
+    return (row, kernels_on_largest("native_band", seen),
+            (native_img, drops), sweep)
 
 
 # Phase multicard: tiling.sharded_render with a device list, one worker
@@ -2287,7 +2382,7 @@ def phase_multicard(native_serial):
     runs, launches = [], {}
 
     def record(tag, reading, keys):
-        for k in keys:
+        for k in keys + ("alpha_sweep_launches",):
             launches.setdefault(k, {})[tag] = worker_launches(reading, k)
 
     for denoiser in (False, True):
@@ -2811,6 +2906,8 @@ def run(args):
           "the castle frame launched no K1 or K2")
     k1 = phase_k1("k1", seen["trace_opaque_blocks"][-1])
     k2 = phase_k2("k2", seen["trace_shadow_blocks"][-1])
+    # 4b. the alpha sweep's kernel on every sweep of that frame
+    sweep = alpha_sweep_phase("alpha_sweep", seen["alpha_sweep"])
     del dev, view, seen
     torch.cuda.empty_cache()
 
@@ -2878,7 +2975,7 @@ def run(args):
     streamed, k_streamed = phase_streamed()
     phase_midframe()
     _, banded_counts = phase_banded_castle()
-    _, k_native, native_serial = phase_bench5_fidelity()
+    _, k_native, native_serial, sweep["bench5"] = phase_bench5_fidelity()
     # 17b. the bands at once, one worker thread per device entry
     multicard = phase_multicard(native_serial)
     del native_serial
@@ -2915,6 +3012,10 @@ def run(args):
     # K1 and K2 also carry the numbers of their largest launches in one
     # streamed config-4 frame, as streamed_<key>, and in the first band
     # of bench config 5's native reference, as native_band_<key>.
+    # The alpha sweep's kernel has no bounce launch: its row's numbers
+    # are sums over the sweeps of one castle frame (4b), and over those of
+    # one settled bench config 5 draw as bench5_<key>, with the launches
+    # of each draw; it carries its launches in the same paths as K1.
     kernel = lambda name, src, line, launches, row, refl_launches=None, **more: dict(
         name=name, route="cuda", source=f"rt64tpu_torch/csrc/{src}",
         replaces=f"rt64tpu/ops/tracer_pallas.py:{line}", launches=launches,
@@ -2958,6 +3059,25 @@ def run(args):
         kernel("trace_shadow_walk<MtClusters> (K4)", "mt_tracer.cu", 1303,
                large["shadow_mt_launches"], k4,
                multicard_launches=multicard["shadow_mt_launches"]),
+        dict(name="alpha_sweep_kernel<K, CULL>", route="cuda",
+             source="rt64tpu_torch/csrc/alpha_sweep.cu", replaces=None,
+             launches=main["alpha_sweep_launches"],
+             **{k: sweep[k] for k in measured}, library_ms=None,
+             launches_per_draw=sweep["launches"],
+             **{f"bench5_{k}": sweep["bench5"][k] for k in measured},
+             bench5_launches_per_draw=sweep["bench5"]["launches"],
+             reflection_launches=refl["alpha_sweep_launches"],
+             raster_launches=raster["alpha_sweep_launches"],
+             upscaled_launches={f"bench{n}": row["alpha_sweep_launches"]
+                                for n, row in upscaled.items()},
+             streamed_launches={m: row["alpha_sweep_launches"]
+                                for m, row in streamed.items()},
+             banded_launches=band_launches(banded_counts,
+                                           "alpha_sweep_launches"),
+             multicard_launches=multicard["alpha_sweep_launches"],
+             abi_launches={h: c["alpha_sweep_launches"]
+                           for h, c in abi["launches"].items()},
+             train_launches=train["alpha_sweep_launches"]),
     ]})
     result_line()
     return 0

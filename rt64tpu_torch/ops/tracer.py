@@ -17,7 +17,9 @@ rt64_shader.cpp:547-581):
     (ops/shading.py).
 
 The packet tracer (ops/tracer_cuda.py) drops in through the opaque_fn
-hook; this module is its oracle and carries the alpha path.
+hook; this module is its oracle and carries the alpha path, whose
+K-hit sweep runs on the card as tracer_cuda.alpha_sweep's kernel
+(_alpha_sweep_plain is its twin).
 """
 
 from __future__ import annotations
@@ -539,8 +541,35 @@ def _alpha_sweep(
     """The raw O(rays x alpha-list) K-hit sweep (see trace_alpha).
 
     Returns (t_biased (N, K), tri (N, K), uv (N, K, 2), bias (N, K)):
-    the depth bias of each extracted hit rides as a payload, so callers
-    recover the true t as key + bias with no per-hit gather.
+    the depth bias of each hit comes with it, so callers recover the
+    true t as key + bias with no per-hit gather. CPU tensors take
+    _alpha_sweep_plain, CUDA tensors the hand-written kernel
+    (tracer_cuda.alpha_sweep); the result does not depend on `chunk`,
+    the twin's piece of the list.
+    """
+    if origins.device.type == "cpu":
+        return _alpha_sweep_plain(origins, dirs, t_min, t_max, scene,
+                                  k_alpha, cull_backface, chunk)
+    from rt64tpu_torch.ops import tracer_cuda
+
+    return tracer_cuda.alpha_sweep(origins, dirs, t_min, t_max, scene,
+                                   k_alpha, cull_backface)
+
+
+def _alpha_sweep_plain(
+    origins, dirs, t_min, t_max, scene: TraceScene, k_alpha: int,
+    cull_backface: bool, chunk: int = 256,
+):
+    """The alpha sweep's plain twin: Moller-Trumbore over (rays x chunk)
+    planes, the K smallest keys of each chunk by _extract_k_smallest,
+    merged into the carry chunk by chunk. The bias rides as a payload.
+
+    Tie rule: among equal keys the later alpha-list position comes
+    first, whatever the chunk (a chunk's extraction takes the largest
+    column first; the merge puts both lists in reversed, so the largest
+    column reads the later chunk's hits first, each list in its own
+    order). The JAX package merges without reversing, so it can order
+    exactly equal keys from different chunks otherwise.
     """
     n = origins.shape[1]
     dev = origins.device
@@ -578,13 +607,10 @@ def _alpha_sweep(
         if carry is None:
             carry = ext
             continue
-        carry = _extract_k_smallest(
-            torch.cat([carry[0], ext[0]], dim=1),
-            torch.cat([carry[1], ext[1]], dim=1),
-            k,
-            payloads=tuple(torch.cat([a, b], dim=1)
-                           for a, b in zip(carry[2:], ext[2:])),
-        )
+        both = [torch.cat([a.flip(1), b.flip(1)], dim=1)
+                for a, b in zip(carry, ext)]
+        carry = _extract_k_smallest(both[0], both[1], k,
+                                    payloads=tuple(both[2:]))
     t_a, tri_a, u_a, v_a, b_a = carry
     return t_a, tri_a, torch.stack([u_a, v_a], dim=-1), b_a
 

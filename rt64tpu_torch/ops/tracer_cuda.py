@@ -20,9 +20,11 @@ packet-granular:
 
 Each kernel has a plain PyTorch twin that takes the same inputs and
 computes the same function (trace_opaque_plain, trace_shadow_plain,
-trace_opaque_mt_plain, trace_shadow_mt_plain). The wrappers choose by
+trace_opaque_mt_plain, trace_shadow_mt_plain,
+tracer._alpha_sweep_plain). The wrappers choose by
 device only: a CPU tensor takes the plain twin, a CUDA tensor launches
 the kernel (built on first use with nvcc) or raises. Nothing falls back.
+The alpha sweep's choice is made by its one caller, tracer._alpha_sweep.
 
 Tie rule (K1, K3 and their twins): among hits, the smallest biased key
 (t - depth bias) wins; among equal keys, the largest triangle id. The
@@ -50,6 +52,18 @@ Cluster tables, both with the all-zero pad cluster `nc` last:
     kernels read its repacked form (pack_mt_clusters): 16-byte operands
     per triangle and the cluster's box, (nc + 1, PK_FLOAT4S, 4) f32.
 
+The alpha-class K-hit sweep (alpha_sweep): every ray against the whole
+compacted alpha list, keeping its K nearest hits, for the alpha slots of
+every pass (tracer.trace_alpha, tracer.trace_alpha_to_compact). Its
+kernel, alpha_sweep_kernel in ``rt64tpu_torch/csrc/alpha_sweep.cu``,
+runs one thread per ray with a K-slot insertion list in registers and
+the list staged through shared memory, so no (rays x list) tensor is
+made; its plain twin is tracer._alpha_sweep_plain, which sweeps the list
+in 256-entry chunks. Tie rule (kernel and twin): ascending biased key;
+among equal keys the later alpha-list position first, whatever the
+chunk. t, u, v and the bias equal the twin's bit for bit. It replaces no
+TPU kernel: the JAX package runs the sweep as XLA elementwise work.
+
 The size switch (clusters_resident): the JAX package keeps its Woop
 table resident in on-chip memory while it fits RESIDENT_TABLE_BYTES
 (triangle buckets up to 26,880) and streams the 128-triangle table from
@@ -74,6 +88,7 @@ from typing import NamedTuple
 
 import torch
 
+from rt64tpu_torch import limits
 from rt64tpu_torch.ops import tracer
 
 _BIG = tracer._BIG
@@ -141,7 +156,8 @@ class LaunchCounts:
     NAMES = ("opaque_launches",  # K1
              "shadow_launches",  # K2
              "opaque_mt_launches",  # K3
-             "shadow_mt_launches")  # K4
+             "shadow_mt_launches",  # K4
+             "alpha_sweep_launches")  # alpha_sweep_kernel
     _lock = threading.Lock()
     _local = threading.local()
 
@@ -499,6 +515,10 @@ C_SIGNATURES = {
     "rt64_mt_grid": [_I, _I],
     # counts, blocks, max_items, items, n_items, stream
     "rt64_work_items": [_P, _I, _I, _P, _P, _P],
+    # origins, dirs, t_min, t_max, n, v0, v1, v2, no_cull, bias, n_tri,
+    # alpha_idx, a_cap, k, cull, t, tri, uv, bias, stream
+    "rt64_alpha_sweep": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I,
+                         _I, _I, _P, _P, _P, _P, _P],
 }
 
 
@@ -1201,6 +1221,77 @@ def trace_shadow_mt_plain(rays8, clusters, visits, counts, entries):
             blocked = blocked | hit.any(dim=2)
         outs.append(blocked.reshape(-1))
     return torch.cat(outs).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# The alpha-class K-hit sweep
+# ---------------------------------------------------------------------------
+
+MAX_SWEEP_HITS = limits.SceneLimits().max_hit_queries  # the kernel's largest
+
+
+def alpha_sweep(origins, dirs, t_min, t_max, scene: tracer.TraceScene,
+                k_alpha: int, cull_backface: bool):
+    """The K nearest alpha-class hits per ray over the scene's compacted
+    alpha list, on a CUDA device: (t_biased (N, K), tri (N, K) int64,
+    uv (N, K, 2), bias (N, K)), ascending by biased key; among equal keys
+    the later list position comes first; misses read _BIG, -1, 0 and 0.
+
+    Launches alpha_sweep_kernel (csrc/alpha_sweep.cu): one thread per
+    ray with a K-slot insertion list in registers, the list staged
+    through shared memory, the plain twin's arithmetic operation for
+    operation, so every output equals tracer._alpha_sweep_plain's bit for
+    bit. No (rays x list) tensor is made. Other devices raise."""
+    dev = origins.device
+    if dev.type != "cuda":
+        raise ValueError(f"alpha_sweep launches on a CUDA device, not {dev}")
+    if not 1 <= k_alpha <= MAX_SWEEP_HITS:
+        raise ValueError(f"k_alpha must be in [1, {MAX_SWEEP_HITS}], "
+                         f"got {k_alpha}")
+    n = origins.shape[1]
+    n_tri = scene.num_triangles
+    inputs = (
+        ("origins", origins, torch.float32, (3, n)),
+        ("dirs", dirs, torch.float32, (3, n)),
+        ("t_min", t_min, torch.float32, (n,)),
+        ("t_max", t_max, torch.float32, (n,)),
+        ("v0", scene.v0, torch.float32, (3, n_tri)),
+        ("v1", scene.v1, torch.float32, (3, n_tri)),
+        ("v2", scene.v2, torch.float32, (3, n_tri)),
+        ("no_cull", scene.no_cull, torch.bool, (n_tri,)),
+        ("bias", scene.bias, torch.float32, (n_tri,)),
+        ("alpha_idx", scene.alpha_idx, torch.int64,
+         (scene.alpha_idx.shape[0],)),
+    )
+    ptrs = []
+    keep = []  # the contiguous copies the pointers address
+    for name, t, dtype, shape in inputs:
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, origins on {dev}")
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be a {shape} {dtype} tensor, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        t = t.contiguous()
+        keep.append(t)
+        ptrs.append(t.data_ptr())
+    k = k_alpha
+    t_out = torch.empty((n, k), dtype=torch.float32, device=dev)
+    tri = torch.empty((n, k), dtype=torch.int64, device=dev)
+    uv = torch.empty((n, k, 2), dtype=torch.float32, device=dev)
+    bias = torch.empty((n, k), dtype=torch.float32, device=dev)
+    if n == 0:
+        return t_out, tri, uv, bias
+    (o, d, t0, t1, v0, v1, v2, no_cull, bias_in, alpha_idx) = ptrs
+    lib = kernel_library().lib
+    with torch.cuda.device(dev):  # see _launch_opaque
+        err = lib.rt64_alpha_sweep(
+            o, d, t0, t1, n, v0, v1, v2, no_cull, bias_in, n_tri, alpha_idx,
+            scene.alpha_idx.shape[0], k, int(bool(cull_backface)),
+            t_out.data_ptr(), tri.data_ptr(), uv.data_ptr(), bias.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "alpha_sweep_kernel")
+    launch_counts.add("alpha_sweep_launches")
+    return t_out, tri, uv, bias
 
 
 # ---------------------------------------------------------------------------

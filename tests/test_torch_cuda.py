@@ -1,5 +1,6 @@
-"""Card-only tests of the port: K1/K2 and K3/K4 against their plain
-twins, the wrappers' launch counting and checks, launches from worker
+"""Card-only tests of the port: K1/K2, K3/K4 and the alpha sweep's
+kernel against their plain twins, the wrappers' launch counting and
+checks, launches from worker
 threads, tiny frames on the card against the CPU, and bands on two cards
 (which skips on one). This file imports torch and rt64tpu_torch only, so it
 runs on a machine without JAX:
@@ -15,6 +16,8 @@ import torch
 
 from rt64tpu_torch.ops import tracer as ptr
 from rt64tpu_torch.ops import tracer_cuda as tc
+from alpha_sweep_cases import (bits, sweep_rays_torch, sweep_scene,
+                               trace_scene)
 
 pytestmark = pytest.mark.cuda
 
@@ -309,6 +312,125 @@ def test_wrapper_rejects_mixed_devices(card):
     with pytest.raises(ValueError):
         tc.trace_opaque_blocks(p.rays8, p.clusters.cpu(), *p[2:5], True,
                                packed=p.packed)
+
+
+def _random_sweep(n):
+    """The shared 700-entry alpha list (three 256-entry tiles, the last
+    partial) with pad ids, single- and double-sided triangles, biases,
+    and 20 copies of one double-sided triangle spread over it (equal
+    keys, and rows with more hits than any K); rays at random, through
+    the copies and away from everything, a quarter with an empty
+    interval (pad lanes)."""
+    scene, _ = sweep_scene(17)
+    return scene, sweep_rays_torch("mixed", n, seed=17, dead=0.25)
+
+
+def _castle_sweep(n):
+    """The benchmark's castle (portbench/scene.py, the 4K cell's
+    configuration) in world space, with the alpha list the frame builds
+    from it (compact_alpha at the frame's 256 entries, spatially sorted);
+    camera rays from the walk's orbit aimed at the billboards, and shadow
+    rays from the billboards towards the first light."""
+    import json
+    import os
+
+    from portbench import scene as sc
+
+    bench = os.path.join(os.path.dirname(__file__), os.pardir, "portbench")
+    with open(os.path.join(bench, "configs", "castle-4k-dlss.json")) as f:
+        cfg = json.load(f)
+    with open(os.path.join(bench, "traffic", "walk.json")) as f:
+        walk = json.load(f)
+    data = sc.build_scene(cfg["scene"], walk["character"], seed=2987654321)
+    corners, alpha, no_cull = [], [], []
+    for inst in data.instances:
+        m = data.meshes[inst.mesh]
+        world = np.c_[m.positions, np.ones(len(m.positions))] @ inst.transform
+        corners.append(world[m.indices][..., :3].astype(np.float32))
+        alpha += [inst.shader == "leaf"] * len(m.indices)
+        no_cull += [inst.no_cull] * len(m.indices)
+    tris = np.concatenate(corners)  # (T, 3 corners, 3)
+    v0, v1, v2 = (tris[:, c].T for c in range(3))
+    alpha = np.array(alpha)
+    t = alpha.shape[0]
+    scene = trace_scene(v0, v1, v2, np.array(no_cull),
+                        np.zeros(t, np.float32), np.zeros(0, np.int64), alpha)
+    scene = scene._replace(alpha_idx=ptr.sort_alpha_spatial(
+        ptr.compact_alpha(scene.valid, scene.alpha, 256), scene.v0, scene.v1,
+        scene.v2))
+    rng = np.random.default_rng(3)
+    leaves = np.array([data.instances[i].transform[3, :3] for i in data.foliage])
+    aim = leaves[rng.integers(0, len(leaves), n)] + rng.uniform(
+        -1.2, 1.2, (n, 3)) + [0.0, 0.8, 0.0]
+    orbit = walk["orbit"]
+    yaw = rng.uniform(0, 2 * np.pi, n)
+    eye = np.stack([orbit["center"][0] + orbit["radius"] * np.sin(yaw),
+                    np.full(n, orbit["eye_height"]),
+                    orbit["center"][2] + orbit["radius"] * np.cos(yaw)], 1)
+    shadow = rng.uniform(size=n) < 0.3
+    light = np.array(data.lights[0]["position"])
+    o = np.where(shadow[:, None], aim, eye)
+    d = np.where(shadow[:, None], light - aim, aim - eye)
+    t_min = np.where(shadow, 1e-3, 0.1)
+    t_max = np.where(shadow, 1.0, 1e5)
+    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
+    return scene, [f(o.T), f(d.T), f(t_min), f(t_max)]
+
+
+SWEEPS = {"random": _random_sweep, "castle": _castle_sweep}
+
+
+@pytest.mark.parametrize("case", sorted(SWEEPS))
+@pytest.mark.parametrize("cull", [True, False])
+@pytest.mark.parametrize("k", [1, 2, 4, 16])
+def test_alpha_sweep_matches_plain_twin(card, case, cull, k):
+    """alpha_sweep_kernel against its plain twin on the CPU, same inputs:
+    triangle ids exactly equal, t, u, v and the bias bit-equal."""
+    scene, rays = SWEEPS[case](8192)
+    to = lambda s: s._replace(**{f: getattr(s, f).to(card)
+                                 for f in s._fields if f != "has_alpha"})
+    before = tc.launch_counts.alpha_sweep_launches
+    got = tc.alpha_sweep(*[r.to(card) for r in rays], to(scene), k, cull)
+    assert tc.launch_counts.alpha_sweep_launches == before + 1
+    want = ptr._alpha_sweep_plain(*rays, scene, k, cull)
+    for g, w in zip(got, want):
+        assert g.shape == w.shape and g.dtype == w.dtype
+        assert torch.equal(bits(g.cpu()), bits(w))
+    hits = (want[1] >= 0).sum(dim=1)
+    assert (hits == 0).any() and (hits >= min(k, 2)).any()
+    if case == "random":
+        live = rays[3] >= rays[2]
+        assert not live.all()
+        # The copies' live rays hold more hits than any k: full rows.
+        assert (hits[(rays[1][2] == 1.0) & live] == k).all()
+
+
+def test_alpha_sweep_on_the_frame_path(card):
+    """The frame's compacted alpha trace (slab cull, compaction, sweep,
+    behind mask) on the card launches the kernel once and equals the CPU
+    bit for bit on the castle; k above MAX_SWEEP_HITS raises on the card."""
+    scene, (o, d, t_min, t_max) = _castle_sweep(8192)
+    noise = torch.from_numpy(
+        np.random.default_rng(5).uniform(size=o.shape[1]).astype(np.float32))
+    t_opb = torch.where(torch.arange(o.shape[1]) % 2 == 0, 1e5, 40.0)
+    args = lambda dev, s: ([a.to(dev) for a in (o, d, t_min, t_max)]
+                           + [s, 4, True, 2048, noise.to(dev)])
+    card_scene = scene._replace(**{f: getattr(scene, f).to(card)
+                                   for f in scene._fields if f != "has_alpha"})
+    before = tc.launch_counts.alpha_sweep_launches
+    got = ptr.trace_alpha_to_compact(*args(card, card_scene),
+                                     t_opaque_biased=t_opb.to(card))
+    assert tc.launch_counts.alpha_sweep_launches == before + 1
+    want = ptr.trace_alpha_to_compact(*args("cpu", scene),
+                                      t_opaque_biased=t_opb)
+    for name in ("idx", "mask", "t", "tri", "uv"):
+        assert torch.equal(bits(getattr(got, name).cpu()),
+                           bits(getattr(want, name))), name
+    assert (want.tri >= 0).sum() > 100
+    assert int(got.dropped) == int(want.dropped)
+    with pytest.raises(ValueError, match="k_alpha"):
+        tc.alpha_sweep(*args(card, card_scene)[:5], tc.MAX_SWEEP_HITS + 1,
+                       True)
 
 
 @pytest.mark.parametrize("gi", [0, 1])

@@ -395,7 +395,8 @@ def test_launch_counts_under_threads():
     assert counts.shadow_mt_launches == 8
     assert counts.shadow_launches == counts.opaque_mt_launches == 0
     assert own == [{"opaque_launches": 10_000, "shadow_launches": 0,
-                    "opaque_mt_launches": 0, "shadow_mt_launches": 1}] * 8
+                    "opaque_mt_launches": 0, "shadow_mt_launches": 1,
+                    "alpha_sweep_launches": 0}] * 8
     assert set(vars(counts)) == set(tc.LaunchCounts.NAMES)
 
 

@@ -11,6 +11,7 @@ import torch
 
 from rt64tpu.ops import tracer as jtr
 from rt64tpu_torch.ops import tracer as ptr
+import alpha_sweep_cases as sweep
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -130,3 +131,53 @@ def test_trace_alpha_to_compact_matches(cull, cap):
     _close(j.origins, p.origins)
     np.testing.assert_allclose(np.asarray(j.uv), p.uv.numpy(), rtol=1e-4, atol=1e-4)
     assert int(j.dropped) == int(p.dropped)
+
+
+def _jax_tie_order(stack_ids, chunk, k):
+    """The order the JAX package's sweep gives STACK equal keys: each
+    chunk's extraction takes the later list position first, and its
+    merge (carry, then the chunk's hits, largest column first) reverses
+    both lists at every merge."""
+    carry = []
+    for c in range(0, sweep.A_CAP, chunk):
+        ext = [i for p, i in stack_ids if c <= p < c + chunk][::-1][:k]
+        carry = ext if c == 0 else (carry + ext)[::-1][:k]
+    return carry
+
+
+@pytest.mark.parametrize("k", [4, 16])
+def test_alpha_sweep_ties_across_chunks(k):
+    """The port's sweep against the JAX package's on a 700-entry alpha
+    list (three 256-entry chunks) that holds 20 copies of one triangle:
+    rays with distinct keys agree (ids exactly, t / uv / bias to
+    rounding); on the rays through the copies, whose keys are equal, the
+    port puts the later list position first whatever the chunk (the card
+    kernel's insertion order), the JAX package the order its chunk merge
+    gives. That order is the one documented difference."""
+    (v0, v1, v2, no_cull, bias, alpha_idx), stack = sweep.sweep_arrays(7)
+    arrays = dict(v0=v0, v1=v1, v2=v2, valid=np.ones(v0.shape[1], bool),
+                  alpha=np.ones(v0.shape[1], bool), no_cull=no_cull, bias=bias)
+    js = jtr.TraceScene(**{k_: jnp.asarray(v) for k_, v in arrays.items()},
+                        alpha_idx=jnp.asarray(alpha_idx, jnp.int32),
+                        has_alpha=True)
+    ps = sweep.trace_scene(v0, v1, v2, no_cull, bias, alpha_idx)
+    rays = sweep.sweep_rays("random", n=512, seed=7)
+    jr, pr = _both(rays)
+    j = jtr._alpha_sweep(*jr, js, k, True)
+    p = ptr._alpha_sweep(*pr, ps, k, True)
+    tied = np.isin(p[1].numpy(), stack).any(axis=1)
+    assert 20 < tied.sum() < len(tied) - 100
+    for a, b in zip(j, p):
+        np.testing.assert_allclose(np.asarray(a)[~tied], b.numpy()[~tied],
+                                   **TOL)
+    _eq(np.asarray(j[1])[~tied], p[1][~tied])
+    positions = [(int(np.flatnonzero(alpha_idx == i)[0]), int(i))
+                 for i in stack]
+    port_order = stack[::-1][:k]
+    jax_order = _jax_tie_order(positions, 256, k)
+    assert list(port_order) != jax_order
+    _eq(np.broadcast_to(np.asarray(jax_order), (tied.sum(), k)),
+        torch.from_numpy(np.asarray(j[1])[tied]))
+    _eq(np.broadcast_to(port_order, (tied.sum(), k)), p[1][tied])
+    for a, b in ((j[0], p[0]), (j[3], p[3])):
+        _close(np.asarray(a)[tied], b[tied])

@@ -342,7 +342,8 @@ def test_c_signatures_match_the_cuda_sources():
     per parameter: c_void_p for a pointer or the stream (anything else
     would cut it to 32 bits), c_int for an int."""
     declared = {}
-    for name in ("packet_tracer.cu", "mt_tracer.cu", "packet_walk.cuh"):
+    for name in sorted(n for n in os.listdir(CSRC)
+                       if n.endswith((".cu", ".cuh"))):
         for fn, params in re.findall(
                 r'extern "C" \w+ (\w+)\(([^)]*)\)', _source(name)):
             assert fn not in declared, fn
