@@ -28,6 +28,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from rt64tpu_torch.utils import profiling
+
 RAY_MIN_DISTANCE = 0.1  # Ray.hlsli:8
 RAY_MAX_DISTANCE = 100000.0  # Ray.hlsli:9
 _BIG = 3.0e37
@@ -548,6 +550,7 @@ def _alpha_sweep(
     the twin's piece of the list.
     """
     if origins.device.type == "cpu":
+        profiling.count_launch("alpha_sweep_launches")
         return _alpha_sweep_plain(origins, dirs, t_min, t_max, scene,
                                   k_alpha, cull_backface, chunk)
     from rt64tpu_torch.ops import tracer_cuda

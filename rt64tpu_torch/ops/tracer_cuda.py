@@ -90,6 +90,7 @@ import torch
 
 from rt64tpu_torch import limits
 from rt64tpu_torch.ops import tracer
+from rt64tpu_torch.utils import profiling
 
 _BIG = tracer._BIG
 
@@ -149,15 +150,13 @@ class LaunchCounts:
     launches its kernel, and nowhere else. The counts are the whole
     process's, whatever thread launched (the bands of
     parallel/tiling.py launch from worker threads); a thread inside
-    thread_counts() also counts its own launches there. The lock and
-    the thread's own counts are class attributes, so vars() of the
-    instance holds the counts alone."""
+    thread_counts() also counts its own launches there. While a
+    profiler records, each launch also goes to the frame record
+    (profiling.count_launch), where a CPU twin's call counts as well.
+    The lock and the thread's own counts are class attributes, so
+    vars() of the instance holds the counts alone."""
 
-    NAMES = ("opaque_launches",  # K1
-             "shadow_launches",  # K2
-             "opaque_mt_launches",  # K3
-             "shadow_mt_launches",  # K4
-             "alpha_sweep_launches")  # alpha_sweep_kernel
+    NAMES = profiling.LAUNCHES  # K1, K2, K3, K4, alpha_sweep_kernel
     _lock = threading.Lock()
     _local = threading.local()
 
@@ -173,6 +172,7 @@ class LaunchCounts:
         """One more launch of the wrapper that counts under `name`."""
         with self._lock:
             setattr(self, name, getattr(self, name) + 1)
+        profiling.count_launch(name)
         own = getattr(self._local, "counts", None)
         if own is not None:
             own[name] += 1
@@ -896,6 +896,7 @@ def trace_opaque_blocks(rays8, clusters, visits, counts, entries,
     the winning triangle."""
     _check_inputs(rays8, clusters, visits, counts, entries)
     if rays8.device.type == "cpu":
+        profiling.count_launch("opaque_launches")
         return trace_opaque_plain(rays8, clusters, visits, counts, entries,
                                   cull_backface)
     out = _launch_opaque("rt64_trace_opaque", WP_FLOAT4S,
@@ -1004,6 +1005,7 @@ def trace_shadow_blocks(rays8, clusters, visits, counts, entries,
     the largest t_max among its unblocked rays."""
     _check_inputs(rays8, clusters, visits, counts, entries)
     if rays8.device.type == "cpu":
+        profiling.count_launch("shadow_launches")
         return trace_shadow_plain(rays8, clusters, visits, counts, entries)
     blocked = _launch_shadow("rt64_trace_shadow", WP_FLOAT4S,
                              "pack_woop_clusters", rays8, clusters, visits,
@@ -1091,6 +1093,7 @@ def trace_opaque_mt_blocks(rays8, clusters, visits, counts, entries,
     must be given; items as there)."""
     _check_inputs(rays8, clusters, visits, counts, entries, _MT_TABLE)
     if rays8.device.type == "cpu":
+        profiling.count_launch("opaque_mt_launches")
         return trace_opaque_mt_plain(rays8, clusters, visits, counts, entries,
                                      cull_backface)
     out = _launch_opaque("rt64_trace_opaque_mt", PK_FLOAT4S,
@@ -1110,6 +1113,7 @@ def trace_shadow_mt_blocks(rays8, clusters, visits, counts, entries,
     trace_opaque_mt_blocks."""
     _check_inputs(rays8, clusters, visits, counts, entries, _MT_TABLE)
     if rays8.device.type == "cpu":
+        profiling.count_launch("shadow_mt_launches")
         return trace_shadow_mt_plain(rays8, clusters, visits, counts, entries)
     blocked = _launch_shadow("rt64_trace_shadow_mt", PK_FLOAT4S,
                              "pack_mt_clusters", rays8, clusters, visits,
@@ -1406,7 +1410,8 @@ def _scene_tables(scene) -> SceneTables:
     bounce launches), so the tables are kept with the scene: as an
     attribute of its v0 tensor, so that they are freed with it. They are
     reused while the caller passes the very same tensors and none of
-    them has been written to since."""
+    them has been written to since. A build (a miss) runs in the span
+    `rt64.trace.tables`."""
     tensors = (scene.v0, scene.v1, scene.v2, scene.valid, scene.alpha,
                scene.no_cull, scene.bias)
     stamp = (RESIDENT_TABLE_BYTES,) + tuple(t._version for t in tensors)
@@ -1414,14 +1419,16 @@ def _scene_tables(scene) -> SceneTables:
     if (memo is not None and memo[1] == stamp
             and all(ref() is t for ref, t in zip(memo[0], tensors))):
         return memo[2]
-    resident = clusters_resident(scene.num_triangles)
-    lo, hi = build_cluster_boxes(scene, K_CS if resident else CLUSTER_SIZE)
-    build = build_cluster_mats if resident else build_cluster_data
-    table = build(scene)
-    packed = None
-    if table.device.type in _PACKED_ON:
-        pack = pack_woop_clusters if resident else pack_mt_clusters
-        packed = pack(table, lo, hi)
+    with profiling.span("rt64.trace.tables"):
+        resident = clusters_resident(scene.num_triangles)
+        lo, hi = build_cluster_boxes(scene,
+                                     K_CS if resident else CLUSTER_SIZE)
+        build = build_cluster_mats if resident else build_cluster_data
+        table = build(scene)
+        packed = None
+        if table.device.type in _PACKED_ON:
+            pack = pack_woop_clusters if resident else pack_mt_clusters
+            packed = pack(table, lo, hi)
     tables = SceneTables(resident, lo, hi, table, packed)
     scene.v0._rt64_scene_tables = (
         tuple(weakref.ref(t) for t in tensors), stamp, tables)

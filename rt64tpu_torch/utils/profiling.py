@@ -19,6 +19,10 @@ release (RT64_LOG_* macros, rt64_common.h:153-162). Here:
   * upload(a, device): the per-frame host->device copy of the object
     model and the view driver; its bytes go to the record while a
     profiler records.
+  * count_launch(name): one launch of a tracing wrapper
+    (ops/tracer_cuda.py's K1-K4 and alpha sweep; on the CPU the call of
+    its plain twin, the launch a card would make), added to the record
+    while a profiler records.
   * frame_stats(): the record.
   * trace(): torch.profiler around a block, a chrome trace written
     into log_dir (with the spans).
@@ -39,6 +43,13 @@ from torch._C._autograd import _profiler_enabled
 from torch._C._profiler import _RecordFunctionFast
 
 _local = threading.local()
+
+# The tracing wrappers' launch counters (ops/tracer_cuda.LaunchCounts).
+LAUNCHES = ("opaque_launches",  # K1
+            "shadow_launches",  # K2
+            "opaque_mt_launches",  # K3
+            "shadow_mt_launches",  # K4
+            "alpha_sweep_launches")  # alpha_sweep_kernel
 
 
 def recording() -> bool:
@@ -70,10 +81,10 @@ def span(name: str):
 class FrameRecord:
     """What the frames made while a torch profiler recorded: Device.draw
     calls (frames), render_frame calls (renders: alpha-boost re-renders
-    and bands included), each stage's ms and calls, and the bytes
-    upload() copied. The whole process's, whatever thread added (band
-    workers add their stages under the same names), under one lock like
-    tracer_cuda.LaunchCounts."""
+    and bands included), each stage's ms and calls, the bytes upload()
+    copied and the tracing wrappers' launches (LAUNCHES). The whole
+    process's, whatever thread added (band workers add their stages
+    under the same names), under one lock like tracer_cuda.LaunchCounts."""
 
     _lock = threading.Lock()
 
@@ -85,6 +96,7 @@ class FrameRecord:
             self.frames = 0
             self.renders = 0
             self.upload_bytes = 0
+            self.launches = dict.fromkeys(LAUNCHES, 0)
             self.stage_ms = {}
             self.stage_calls = {}
             self._timed = []  # (name, device, start, end): events not yet read
@@ -95,6 +107,10 @@ class FrameRecord:
             self.frames += frames
             self.renders += renders
             self.upload_bytes += upload_bytes
+
+    def add_launch(self, name: str):
+        with self._lock:
+            self.launches[name] += 1
 
     def _add_stage(self, name: str, ms: float):
         self.stage_ms[name] = self.stage_ms.get(name, 0.0) + ms
@@ -140,7 +156,7 @@ class FrameRecord:
             return dict(frames=self.frames, renders=self.renders,
                         stage_ms=dict(self.stage_ms),
                         stage_calls=dict(self.stage_calls),
-                        upload_bytes=self.upload_bytes)
+                        upload_bytes=self.upload_bytes, **self.launches)
 
 
 record = FrameRecord()
@@ -195,11 +211,19 @@ def upload(a, device) -> torch.Tensor:
     return t.to(device)
 
 
+def count_launch(name: str):
+    """One launch of the tracing wrapper counted under `name` (one of
+    LAUNCHES) while a profiler records. Counts on the host alone: no
+    launch, no wait."""
+    if recording():
+        record.add_launch(name)
+
+
 def frame_stats() -> dict:
     """{frames, renders, stage_ms: {name: total ms}, stage_calls: {name:
-    calls}, upload_bytes} made while a torch profiler recorded, since
-    the process started or reset_frame_stats(). Waits for the stage
-    events not yet read."""
+    calls}, upload_bytes, and a count for each of LAUNCHES} made while a
+    torch profiler recorded, since the process started or
+    reset_frame_stats(). Waits for the stage events not yet read."""
     return record.stats()
 
 

@@ -505,6 +505,40 @@ def test_reflection_frame_launches_k1(card):
     assert out.reflection.abs().max().item() > 0.05
 
 
+@pytest.mark.parametrize("resident", [True, False],
+                         ids=["below_switch", "past_switch"])
+def test_frame_stats_equal_launch_counts(card, monkeypatch, resident):
+    """A profiled draw of the glass sample (GI, two reflection bounces)
+    on either side of the size switch: the frame record's launches of
+    each wrapper equal launch_counts' deltas over the draw, K3/K4 and no
+    K1/K2 past the switch, the reverse below it (the CPU twins' side:
+    tests/test_torch_launch_stats.py)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from rt64tpu_torch.utils import profiling, testscenes
+
+    if not resident:
+        monkeypatch.setattr(tc, "RESIDENT_TABLE_BYTES", 0)
+    dev, scene, view = testscenes.build_sample_scene(
+        128, 64, gi_samples=1, with_glass=True)
+    testscenes.make_glass_translucent(scene)
+    view.max_reflections = 2
+    dev.draw()  # settles the alpha boost ladder
+    before = dict(vars(tc.launch_counts))
+    profiling.reset_frame_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]):
+        dev.draw()
+    st = profiling.frame_stats()
+    profiling.reset_frame_stats()
+    delta = {k: v - before[k] for k, v in vars(tc.launch_counts).items()}
+    assert {k: st[k] for k in profiling.LAUNCHES} == delta
+    used = (("opaque_launches", "shadow_launches") if resident
+            else ("opaque_mt_launches", "shadow_mt_launches"))
+    assert all(delta[k] > 0 for k in used), delta
+    assert sum(delta.values()) == sum(delta[k] for k in used) + delta[
+        "alpha_sweep_launches"]
+
+
 def _raster_inputs(seed, n=12, width=96, height=64):
     """Seeded raster triangles over a random image: random combiners,
     both texture bindings, point and bilinear filtering under every

@@ -44,6 +44,8 @@ PARENT = {
 PASSES = ("setup", "primary", "direct", "indirect", "refraction",
           "reflection", "compose", "upscale", "post")
 PARENT.update({f"rt64.pass.{p}": "rt64.scene.render" for p in PASSES})
+# The scene's cluster tables, built by the frame's first trace.
+PARENT["rt64.trace.tables"] = "rt64.pass.primary"
 STAGES = tuple(f"rt64.pass.{p}" for p in PASSES) + ("rt64.view.present",)
 
 
