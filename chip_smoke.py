@@ -38,11 +38,13 @@ result line):
   6c. reflections: the same castle GI 1280x720 frame with two reflection
      bounces (bench config 4 at native size): 10 frames through
      Device.draw() with the launch counts set to 0 just before and read
-     just after (K1 at least 4 launches a frame), the framebuffer held
-     against the frame drawn without reflections (it must differ where
-     a reflection was seeded and equal it elsewhere), and K1 against its
-     twin on both reflection launches of a settled draw (mirror rays,
-     unregrouped, mostly dead; the second bounce may have none alive);
+     just after (K1 exactly 2 launches a frame and one a reflection
+     bounce with a live mirror ray, read from the frame record), the
+     framebuffer held against the frame drawn without reflections (it
+     must differ where a reflection was seeded and equal it elsewhere),
+     and K1 against its twin on the reflection launches of a settled
+     draw (mirror rays, unregrouped, on the live rays' bundles alone; a
+     second bounce with no live ray is not launched);
   6d. raster layers: the castle-raster frame (6c's frame with the
      castle's sky plane removed, a raster-background skybox and a HUD of
      12 textured quads): against two draws of it without the HUD, every
@@ -639,6 +641,7 @@ def phase_reflections(plain_fb):
     import numpy as np
     import torch
     from rt64tpu_torch.pipeline import framegraph as fg
+    from rt64tpu_torch.utils import profiling
     from rt64tpu_torch.utils.castle_scene import build_castle_scene
 
     dev, _, view = build_castle_scene(GI_W, GI_H, di_samples=1,
@@ -670,17 +673,30 @@ def phase_reflections(plain_fb):
         reflection_max=float(refl.max()),
         refl_alpha_mean_on_seeds=float(out.gbuffers.refl_alpha[seeds].mean()))
     del out
-    frame_ms, counts, peak = draw_frames(dev, REFL_FRAMES)
+    profiling.reset_frame_stats()
+    with profiling.inherit_recording(True):
+        frame_ms, counts, peak = draw_frames(dev, REFL_FRAMES)
+    stats = profiling.frame_stats()
+    profiling.reset_frame_stats()
+    # A bounce with no live mirror ray is not issued.
+    issued = (REFL_BOUNCES * stats["renders"]
+              - stats["reflection_bounces_skipped"])
     row = frame_row("reflections", view, REFL_FRAMES, frame_ms, counts, peak)
     row.update(width=GI_W, height=GI_H, max_reflections=REFL_BOUNCES,
                elsewhere_tolerance=REFL_ELSEWHERE_TOL,
                changed_threshold=REFL_CHANGED_MIN,
-               vs_max_reflections_0=compare, **reflection)
+               vs_max_reflections_0=compare, bounces_issued=issued,
+               reflection_live_rays=stats["reflection_live_rays"], **reflection)
     emit(row)
     check_frame(row, view, GI_W, GI_H)
     k1 = counts["opaque_launches"]
-    check(k1 >= 4 * REFL_FRAMES,
-          f"K1 launched {k1} times in {REFL_FRAMES} reflection frames (< 4 each)")
+    renders = stats["renders"]
+    check(renders >= REFL_FRAMES and issued >= renders,
+          f"{renders} renders and {issued} reflection bounces issued in "
+          f"{REFL_FRAMES} reflection frames")
+    check(k1 == 2 * renders + issued,
+          f"K1 launched {k1} times in {renders} reflection renders, not 2 a "
+          f"render and one a bounce issued ({issued})")
     check(counts["opaque_mt_launches"] == 0 and counts["shadow_mt_launches"] == 0,
           "the castle frame (below the size switch) launched K3 or K4")
     check(0.0 < reflection["refl_alpha_fraction"] < 0.5,
@@ -700,15 +716,16 @@ def phase_reflections(plain_fb):
 
 
 def phase_k1_reflections(seen):
-    """K1 on the recorded castle-refl draw's two reflection launches (its
-    third and fourth closest-hit launches, after the primary and the GI
-    bounce): mirror rays from the moat, unregrouped, most lanes dead; the
-    second bounce may have no live ray at all."""
+    """K1 on the recorded castle-refl draw's reflection launches (its
+    closest-hit launches after the primary and the GI bounce): mirror rays
+    from the moat, unregrouped, on the live rays' bundles alone. A second
+    bounce with no live ray (the castle's usual case) is not launched."""
     calls = seen["trace_opaque_blocks"]
-    check(len(calls) == 2 + REFL_BOUNCES,
+    check(3 <= len(calls) <= 2 + REFL_BOUNCES,
           f"the settled castle-refl draw launched K1 {len(calls)} times")
     first = phase_k1("k1_refl1", calls[2])
-    first["last"] = phase_k1(f"k1_refl{REFL_BOUNCES}", calls[-1])
+    if len(calls) > 3:
+        first["last"] = phase_k1(f"k1_refl{len(calls) - 2}", calls[-1])
     return first
 
 
@@ -718,7 +735,7 @@ def phase_k3_reflection(seen):
     from rt64tpu_torch.ops import tracer_cuda as tc
 
     calls = seen["trace_opaque_mt_blocks"]
-    check(len(calls) == 2 + REFL_BOUNCES,
+    check(3 <= len(calls) <= 2 + REFL_BOUNCES,
           f"the large-castle reflection draw launched K3 {len(calls)} times")
     row = closest_hit_phase("k3_refl1", calls[2], tc.trace_opaque_mt_blocks,
                             tc.trace_opaque_mt_plain, FLOPS_K3)
@@ -785,9 +802,10 @@ def phase_secondary_small():
     emit(dict(phase="glass_small_card_vs_cpu", width=w, height=h, frames=1,
               max_reflections=REFL_BOUNCES, ssim=s, seconds=seconds, **counts))
     check(s >= 0.99, f"glass scene SSIM card vs CPU {s} < 0.99")
-    # primary, GI bounce, refraction, reflections; direct light, bounce
-    # light, refraction light
-    check(counts["opaque_launches"] >= 3 + REFL_BOUNCES
+    # primary, GI bounce, refraction, the reflection bounces with a live
+    # mirror ray (the first at least; a bounce with none is not
+    # launched); direct light, bounce light, refraction light
+    check(counts["opaque_launches"] >= 4
           and counts["shadow_launches"] >= 3,
           f"the glass frame launched K1/K2 {counts}")
 

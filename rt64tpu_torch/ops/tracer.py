@@ -32,6 +32,8 @@ from rt64tpu_torch.utils import profiling
 
 RAY_MIN_DISTANCE = 0.1  # Ray.hlsli:8
 RAY_MAX_DISTANCE = 100000.0  # Ray.hlsli:9
+# Adjacent rays per interval bundle of the alpha cull (_slab_any_bundled).
+_CULL_BUNDLE = 8
 _BIG = 3.0e37
 
 
@@ -348,7 +350,8 @@ class AlphaCompact(NamedTuple):
     trace_alpha_to_compact): callers shade and resolve in this space and
     write their fold results back once."""
 
-    idx: torch.Tensor  # (CAP,) source ray lane, == n for pad lanes
+    idx: torch.Tensor  # (CAP,) source ray lane, == n for pad lanes; CAP is
+    # the capacity, or N where fewer rays are traced
     mask: torch.Tensor  # (N,) candidate mask (lane compacted iff mask &
     # rank(mask) < CAP)
     origins: torch.Tensor  # (3, CAP) gathered ray origins
@@ -393,7 +396,9 @@ def trace_alpha_to_compact(
         ).amax()
         cull_tmax = torch.minimum(t_max, t_opaque_biased + alpha_bias_max)
     ray_mask = _slab_any_bundled(origins, dirs, t_min, cull_tmax, lo_c, hi_c)
-    idx, count = compact_indices(ray_mask, capacity)
+    # No more than n rays can be candidates: past n the compacted space
+    # would hold only pad lanes. Drops still count against `capacity`.
+    idx, count = compact_indices(ray_mask, min(capacity, n))
     safe_r = torch.clamp(idx, max=n - 1)
     live_r = idx < n
 
@@ -441,7 +446,24 @@ def trace_opaque_only(
     return t_true, tri_op, uv_op, t_opb
 
 
-def _slab_any_bundled(origins, dirs, t_min, t_max, lo, hi, sub: int = 8):
+def live_bundles(active):
+    """(N,) bool: the lanes of every bundle of _CULL_BUNDLE adjacent lanes
+    that holds an active lane, and those of a partial last bundle always.
+    The alpha cull tests such bundles (_slab_any_bundled; lane by lane
+    where N is no multiple of a bundle), so on a subset of whole bundles
+    in lane order it marks each lane as over all N: the same candidates,
+    dropped in the same order past the capacity."""
+    s = _CULL_BUNDLE
+    n = active.shape[0]
+    pad = -n % s
+    bundles = torch.cat([active, active.new_zeros(pad)]).view(-1, s).any(1)
+    if pad:
+        bundles[-1] = True
+    return bundles[:, None].expand(-1, s).reshape(-1)[:n]
+
+
+def _slab_any_bundled(origins, dirs, t_min, t_max, lo, hi,
+                      sub: int = _CULL_BUNDLE):
     """Conservative per-ray any-box mask via SUB-ray interval bundles
     (origin box, direction box, live [t_min, t_max] hull of `sub`
     adjacent rays) against M boxes. Used only as a compaction
@@ -449,10 +471,11 @@ def _slab_any_bundled(origins, dirs, t_min, t_max, lo, hi, sub: int = 8):
     Dead rays (empty interval) are excluded from the bundle hull and
     from the returned mask."""
     n = origins.shape[1]
-    if n % sub:
-        return slab_per_ray(origins, dirs, t_min, t_max, lo, hi)[0].any(dim=1)
-    ns = n // sub
     live = t_max >= t_min
+    if n % sub:
+        hit = slab_per_ray(origins, dirs, t_min, t_max, lo, hi)[0]
+        return hit.any(dim=1) & live
+    ns = n // sub
 
     def b3(a, fill, red):
         m = torch.where(live[None, :], a, fill)

@@ -413,7 +413,7 @@ def _scatter_carry(full, comp, mask):
 def _fold_shaded_slots(
     sb, tri_rows, trace_scene, origins, dirs, t_min, t_max, k_alpha,
     noise_rand, cfg, make_carry, slot_fn, cull_backface=True, aux=(),
-    mip_diffs=None, regroup=None,
+    mip_diffs=None, regroup=None, frame_lanes=None,
 ):
     """Trace, then fold slot_fn front-to-back over the K+1 ordered hit
     slots (alpha..., opaque last).
@@ -434,10 +434,15 @@ def _fold_shaded_slots(
     only (alpha slots keep bilinear level 0: the compacted lanes drop the
     pixel correspondence the differentials need).
 
+    frame_lanes: the frame's ray count, which sizes the alpha capacity
+    (default: the width of dirs). A pass traced on a subset of its
+    frame's rays passes its frame's, so that it drops what the whole
+    frame would.
+
     Returns (carry, dropped): dropped counts candidate alpha rays beyond
     the compaction capacity, so the view can grow the capacity.
     """
-    n = dirs.shape[1]
+    n = dirs.shape[1] if frame_lanes is None else frame_lanes
     opaque_fn = tracer_cuda.make_opaque_fn(regroup=regroup)
     mip_args = lambda t: None if mip_diffs is None else (t, *mip_diffs)
     # Candidate rays after the opaque-clamped alpha cull are a few
@@ -1078,19 +1083,26 @@ class ReflectionState(NamedTuple):
     row: torch.Tensor  # (R.CTXROW, N)
 
 
+def _mirror_lanes(instance, alpha):
+    """(N,) bool: the lanes with a reflection left to trace."""
+    return (instance >= 0) & (alpha > EPSILON)
+
+
 def reflection_pass(
     sb, tri_rows, trace_scene, cfg, gp, state: ReflectionState, pix,
-    bn_table, noise_rand, bg_planes,
+    bn_table, noise_rand, bg_planes, frame_lanes,
 ):
-    """One ReflectionRayGen iteration (ReflectionRayGen.hlsl:25-143),
-    looped max_reflections times (rt64_view.cpp:1417-1436). Returns
+    """One ReflectionRayGen iteration (ReflectionRayGen.hlsl:25-143) over
+    the lanes of `state`, with pix, bn_table and noise_rand at the same
+    lanes; reflection_bounces loops it (rt64_view.cpp:1417-1436). Returns
     (the next ReflectionState, alpha-drop count). Mirror rays are traced
-    unregrouped, as in the JAX package; pixels with no reflection left
-    ride as dead rays."""
+    unregrouped, as in the JAX package; lanes with no reflection left
+    ride as dead rays and come back unchanged. frame_lanes: the frame's
+    ray count, which sizes the alpha capacity (default: the lanes')."""
     refl_rgb, refl_a, sh_pos, view_dir, sh_nrm, inst_id, sh_row = state
     n = inst_id.shape[0]
     dev = inst_id.device
-    active = (inst_id >= 0) & (refl_a > EPSILON)
+    active = _mirror_lanes(inst_id, refl_a)
     ray_dir = vm.reflect(view_dir, sh_nrm)
 
     bg = _background_env(sb, bg_planes, ray_dir)
@@ -1174,7 +1186,7 @@ def reflection_pass(
       res_inst, new_refl_a), refl_dropped) = _fold_shaded_slots(
         sb, tri_rows, trace_scene, sh_pos, ray_dir, t_min, t_max,
         cfg.k_secondary, noise_rand, cfg, make_carry, slot_body,
-        aux=(refl_a, primary_fresnel),
+        aux=(refl_a, primary_fresnel), frame_lanes=frame_lanes,
     )
 
     res_row = _row_of(tri_rows, res_tri, res_inst >= 0)
@@ -1214,6 +1226,63 @@ def reflection_pass(
     return (ReflectionState(refl_rgb, refl_a, sh_pos, view_dir, sh_nrm,
                             inst_id, sh_row),
             refl_dropped + li_drop)
+
+
+def _write_lanes(full: ReflectionState, lanes, state: ReflectionState):
+    """`full` with `state`, the state of its lanes `lanes`, written back."""
+    return ReflectionState(*(f.index_copy(f.dim() - 1, lanes, c)
+                             for f, c in zip(full, state)))
+
+
+def reflection_bounces(
+    sb, tri_rows, trace_scene, cfg, gp, state: ReflectionState, pix,
+    bn_table, noise_rand, bg_planes, alpha_dropped,
+):
+    """The frame's max_reflections bounces (rt64_view.cpp:1417-1436), each
+    reading the state the last one wrote, traced on the live mirror rays
+    alone. Returns (the ReflectionState after them, alpha_dropped with
+    their alpha drops added).
+
+    Before each bounce one read of the live count (a host sync) decides
+    its width: the lanes of the bundles that hold a live ray
+    (tracer.live_bundles), gathered in lane order, and narrowed again
+    when the count falls. A lane a bounce leaves dead stays dead, so the
+    lanes left out come back unchanged, as over the full width. A bounce
+    with no live ray, and the bounces after it, are not issued. The
+    state goes back to full width once, after the last bounce. The
+    alpha capacity stays the whole frame's, so drops and the view's
+    boost ladder see what full-width bounces would."""
+    n = state.instance.shape[0]
+    dev = state.instance.device
+    full, lanes = state, None  # lanes: the full-width lanes of `state`
+    pix_at, noise_at, bn_at = pix, noise_rand, bn_table
+    last = cfg.max_reflections - 1
+    for b in range(cfg.max_reflections):
+        with profiling.stage("rt64.pass.reflection", dev):
+            active = _mirror_lanes(state.instance, state.alpha)
+            keep = tracer.live_bundles(active)
+            live, m = torch.stack([active.sum(), keep.sum()]).tolist()
+            profiling.count_reflection(live, m if live else 0,
+                                       0 if live else last + 1 - b)
+            if live:
+                if m < keep.shape[0]:
+                    full = (state if lanes is None
+                            else _write_lanes(full, lanes, state))
+                    sel = torch.nonzero_static(keep, size=m)[:, 0]
+                    state = ReflectionState(*(x[..., sel] for x in state))
+                    lanes = sel if lanes is None else lanes[sel]
+                    pix_at, noise_at = pix[lanes], noise_rand[lanes]
+                    bn_at = lambda f, lanes=lanes: bn_table(f)[lanes]
+                state, drop = reflection_pass(
+                    sb, tri_rows, trace_scene, cfg, gp, state, pix_at, bn_at,
+                    noise_at, bg_planes, n,
+                )
+                alpha_dropped = alpha_dropped + drop
+            if lanes is not None and (not live or b == last):
+                state = _write_lanes(full, lanes, state)
+        if not live:
+            break
+    return state, alpha_dropped
 
 
 def _raster_layer(image, sb: SceneBuffers, layer: str, row_offset: int = 0,
@@ -1375,19 +1444,12 @@ def render_frame(
             alpha_dropped = alpha_dropped + r_drop
     else:
         refraction_rgb = torch.zeros((3, n), device=dev)
-    refl = ReflectionState(
-        torch.zeros((3, n), device=dev), g.refl_alpha, g.position,
-        g.view_dir, g.normal, g.instance, g.row,
+    refl, alpha_dropped = reflection_bounces(
+        sb, tri_rows, trace_scene, cfg, gp,
+        ReflectionState(torch.zeros((3, n), device=dev), g.refl_alpha,
+                        g.position, g.view_dir, g.normal, g.instance, g.row),
+        pix, bn, noise_rand, bg_planes, alpha_dropped,
     )
-    # Each bounce reads the state the last one wrote
-    # (rt64_view.cpp:1417-1436).
-    for _ in range(cfg.max_reflections):
-        with profiling.stage("rt64.pass.reflection", dev):
-            refl, rf_drop = reflection_pass(
-                sb, tri_rows, trace_scene, cfg, gp, refl, pix, bn, noise_rand,
-                bg_planes,
-            )
-            alpha_dropped = alpha_dropped + rf_drop
 
     with profiling.stage("rt64.pass.compose", dev):
         # DI denoise is compiled out in the reference

@@ -23,6 +23,11 @@ release (RT64_LOG_* macros, rt64_common.h:153-162). Here:
     (ops/tracer_cuda.py's K1-K4 and alpha sweep; on the CPU the call of
     its plain twin, the launch a card would make), added to the record
     while a profiler records.
+  * count_reflection(live_rays, traced_lanes, skipped): what the
+    reflection bounces of a frame traced (pipeline/framegraph.
+    reflection_bounces: the live mirror rays of the bounces it issued,
+    the lanes those bounces traced, and the bounces it did not issue for
+    want of a live ray), added while a profiler records.
   * frame_stats(): the record.
   * trace(): torch.profiler around a block, a chrome trace written
     into log_dir (with the spans).
@@ -50,6 +55,10 @@ LAUNCHES = ("opaque_launches",  # K1
             "opaque_mt_launches",  # K3
             "shadow_mt_launches",  # K4
             "alpha_sweep_launches")  # alpha_sweep_kernel
+# The reflection bounces' counters (count_reflection).
+REFLECTION = ("reflection_live_rays",  # live mirror rays, summed over bounces
+              "reflection_traced_lanes",  # lanes the issued bounces traced
+              "reflection_bounces_skipped")  # bounces with no live ray
 
 
 def recording() -> bool:
@@ -82,9 +91,10 @@ class FrameRecord:
     """What the frames made while a torch profiler recorded: Device.draw
     calls (frames), render_frame calls (renders: alpha-boost re-renders
     and bands included), each stage's ms and calls, the bytes upload()
-    copied and the tracing wrappers' launches (LAUNCHES). The whole
-    process's, whatever thread added (band workers add their stages
-    under the same names), under one lock like tracer_cuda.LaunchCounts."""
+    copied, the tracing wrappers' launches (LAUNCHES) and the reflection
+    bounces' counters (REFLECTION). The whole process's, whatever thread
+    added (band workers add their stages under the same names), under
+    one lock like tracer_cuda.LaunchCounts."""
 
     _lock = threading.Lock()
 
@@ -96,7 +106,7 @@ class FrameRecord:
             self.frames = 0
             self.renders = 0
             self.upload_bytes = 0
-            self.launches = dict.fromkeys(LAUNCHES, 0)
+            self.counts = dict.fromkeys(LAUNCHES + REFLECTION, 0)
             self.stage_ms = {}
             self.stage_calls = {}
             self._timed = []  # (name, device, start, end): events not yet read
@@ -108,9 +118,9 @@ class FrameRecord:
             self.renders += renders
             self.upload_bytes += upload_bytes
 
-    def add_launch(self, name: str):
+    def add_count(self, name: str, amount: int = 1):
         with self._lock:
-            self.launches[name] += 1
+            self.counts[name] += amount
 
     def _add_stage(self, name: str, ms: float):
         self.stage_ms[name] = self.stage_ms.get(name, 0.0) + ms
@@ -156,7 +166,7 @@ class FrameRecord:
             return dict(frames=self.frames, renders=self.renders,
                         stage_ms=dict(self.stage_ms),
                         stage_calls=dict(self.stage_calls),
-                        upload_bytes=self.upload_bytes, **self.launches)
+                        upload_bytes=self.upload_bytes, **self.counts)
 
 
 record = FrameRecord()
@@ -216,14 +226,26 @@ def count_launch(name: str):
     LAUNCHES) while a profiler records. Counts on the host alone: no
     launch, no wait."""
     if recording():
-        record.add_launch(name)
+        record.add_count(name)
+
+
+def count_reflection(live_rays: int, traced_lanes: int, skipped: int):
+    """One reflection bounce's live mirror rays and the lanes it traced,
+    or the bounces left out for want of a live ray (REFLECTION), while a
+    profiler records. Host ints the caller already holds: no launch, no
+    wait."""
+    if recording():
+        for name, amount in zip(REFLECTION,
+                                (live_rays, traced_lanes, skipped)):
+            record.add_count(name, amount)
 
 
 def frame_stats() -> dict:
     """{frames, renders, stage_ms: {name: total ms}, stage_calls: {name:
-    calls}, upload_bytes, and a count for each of LAUNCHES} made while a
-    torch profiler recorded, since the process started or
-    reset_frame_stats(). Waits for the stage events not yet read."""
+    calls}, upload_bytes, and a count for each of LAUNCHES and
+    REFLECTION} made while a torch profiler recorded, since the process
+    started or reset_frame_stats(). Waits for the stage events not yet
+    read."""
     return record.stats()
 
 

@@ -1,7 +1,8 @@
 """Card-only tests of the port: K1/K2, K3/K4 and the alpha sweep's
 kernel against their plain twins, the wrappers' launch counting and
 checks, launches from worker
-threads, tiny frames on the card against the CPU, and bands on two cards
+threads, tiny frames on the card against the CPU, the reflection bounces
+on their live mirror rays against the full width, and bands on two cards
 (which skips on one). This file imports torch and rt64tpu_torch only, so it
 runs on a machine without JAX:
 
@@ -9,6 +10,8 @@ runs on a machine without JAX:
 
 Without a card every test skips with a reason; chip_smoke.py runs the
 same checks at the castle frame's full size."""
+
+import functools
 
 import numpy as np
 import pytest
@@ -18,6 +21,7 @@ from rt64tpu_torch.ops import tracer as ptr
 from rt64tpu_torch.ops import tracer_cuda as tc
 from alpha_sweep_cases import (bits, sweep_rays_torch, sweep_scene,
                                trace_scene)
+import reflection_cases as rc
 
 pytestmark = pytest.mark.cuda
 
@@ -484,25 +488,71 @@ def test_all_dead_launch_matches_twin(card, monkeypatch, kernel):
 
 def test_reflection_frame_launches_k1(card):
     """The castle at 320x240 with GI, the denoiser and two reflection
-    bounces: K1 launches at least four times per frame (primary, GI
-    bounce, one per reflection bounce), and the reflection plane lights
-    exactly the pixels that seed a reflection (chip_smoke.py holds such
-    frames to the CPU)."""
+    bounces: K1 launches exactly 2 + the reflection bounces with a live
+    ray per frame (primary, GI bounce, one per issued reflection bounce;
+    a bounce with no live ray is not issued), and the reflection plane
+    lights exactly the pixels that seed a reflection (chip_smoke.py holds
+    such frames to the CPU)."""
+    from rt64tpu_torch.utils import profiling
     from rt64tpu_torch.utils.castle_scene import build_castle_scene
 
     dev, _, view = build_castle_scene(320, 240, gi_samples=1, denoiser=True)
     view.max_reflections = 2
     dev.draw()  # settles the alpha boost ladder
     before = tc.launch_counts.opaque_launches
-    dev.draw()
+    profiling.reset_frame_stats()
+    with profiling.inherit_recording(True):
+        dev.draw()
     torch.cuda.synchronize()
-    assert tc.launch_counts.opaque_launches - before >= 4
+    st = profiling.frame_stats()
+    profiling.reset_frame_stats()
+    assert st["renders"] == 1 and st["reflection_live_rays"] > 0
+    issued = view.max_reflections - st["reflection_bounces_skipped"]
+    assert tc.launch_counts.opaque_launches - before == 2 + issued
     out = view._renderer._last
     assert int(out.alpha_dropped) == 0
     seeds = out.gbuffers.refl_alpha > 0
     lit = out.reflection.abs().amax(dim=0) > 0
     assert seeds.any() and torch.equal(lit & ~seeds, torch.zeros_like(lit))
     assert out.reflection.abs().max().item() > 0.05
+
+
+def test_reflection_frame_equals_full_width_bounces(card):
+    """The castle GI frame at 320x240 with two reflection bounces, drawn
+    on the live mirror rays: its reflection plane bit-equal to the same
+    bounces over every lane."""
+    from rt64tpu_torch.utils.castle_scene import build_castle_scene
+
+    dev, _, view = build_castle_scene(320, 240, gi_samples=1, denoiser=True)
+    view.max_reflections = 2
+    args = rc.capture_bounces(dev, view)
+    got = view._renderer._last.reflection
+    want, _, live = rc.full_width_bounces(*args)
+    torch.cuda.synchronize()
+    assert live[0][0] > 0
+    assert torch.equal(rc.bits(got), rc.bits(want.rgb))
+
+
+@functools.lru_cache(maxsize=1)
+def _reflection_cases_on_card():
+    return {k: rc.compare(a) for k, a in rc.cases("cuda").items()}
+
+
+@pytest.mark.parametrize("case", rc.CASES)
+def test_reflection_bounces_bit_equal_on_card(card, case):
+    """reflection_bounces on the live mirror rays against the bounces over
+    every lane, bit for bit on the card (the CPU side:
+    tests/test_torch_reflection_compact.py): the castle (a dead second
+    bounce), two facing mirrors (a narrower second bounce) and a forced
+    alpha-capacity overflow on whole and partial cull bundles."""
+    got = _reflection_cases_on_card()[case]
+    print(case, got)
+    assert got["same"]
+    assert got["dropped"] == got["full_width_dropped"]
+    if case.startswith("overflow"):
+        assert got["dropped"] > 0
+    issued = [lv for lv, _ in got["live"] if lv]
+    assert got["reflection_live_rays"] == sum(issued) > 0
 
 
 @pytest.mark.parametrize("resident", [True, False],

@@ -33,8 +33,9 @@ Measured on the CPU (torch 2.13, jax 0.9): (a) through convert SSIM
 1.1e-6 / 3.7e-7 (100 % within 1e-4), own API SSIM 1.0; (b) through
 convert SSIM 1.0, ids equal on every pixel, reflection max abs error
 3.1e-6, own API SSIM 1.0; (c) SSIM 1.0, ids equal, 4.2e-7 / 3.6e-7, with
-5 K3-twin and 3 K4-twin traces and no K1/K2-twin trace. Since the port
-reads the fixed-grid sky in the tiled frame's order (the JAX package in
+4 K3-twin traces (the second reflection bounce has no live mirror ray
+and is not traced), 3 K4-twin traces and no K1/K2-twin trace. Since the
+port reads the fixed-grid sky in the tiled frame's order (the JAX package in
 row-major order, ROADMAP queue 3), (b) differs at sky pixels by at most
 2/255: SSIM 0.9984 through convert and through the own API. Units: refract,
 fresnel and the light within 1e-5 (chosen lights equal); the fold
@@ -74,6 +75,7 @@ from rt64tpu_torch.ops import tracer as ptr
 from rt64tpu_torch.ops import tracer_cuda as tc
 from rt64tpu_torch.pipeline import framegraph as pfg
 from rt64tpu_torch.pipeline import rows as R
+from rt64tpu_torch.utils import profiling
 from rt64tpu_torch.utils.castle_scene import build_castle_scene as port_castle
 from rt64tpu_torch.utils.ssim import ssim
 from rt64tpu_torch.utils.testscenes import build_sample_scene as port_sample
@@ -394,8 +396,9 @@ def test_glass_frame_through_own_api(glass_frames):
 
 def test_glass_frame_k3_k4_twins(glass_frames, monkeypatch):
     """The size switch at 0: the frame's closest-hit traces (primary,
-    bounce, refraction, both reflections) take K3's twin and its shadow
-    traces (direct light, bounce light, refraction light) K4's."""
+    bounce, refraction, each reflection bounce with a live mirror ray)
+    take K3's twin and its shadow traces (direct light, bounce light,
+    refraction light) K4's."""
     monkeypatch.setattr(tc, "RESIDENT_TABLE_BYTES", 0)
     monkeypatch.setattr(jtp, "VMEM_CLUSTER_BYTES", 0)
     calls = {name: 0 for name in ("trace_opaque_mt_plain",
@@ -409,11 +412,18 @@ def test_glass_frame_k3_k4_twins(glass_frames, monkeypatch):
             return _fn(*a, **kw)
         monkeypatch.setattr(tc, name, counted)
     j, state, _ = glass_frames
-    p = _port_convert(state)
-    print("K3/K4 twin calls", calls)
-    # primary + bounce + refraction + 2 reflections; DI + bounce light +
+    profiling.reset_frame_stats()
+    with profiling.inherit_recording(True):
+        p = _port_convert(state)
+    stats = profiling.frame_stats()
+    profiling.reset_frame_stats()
+    issued = 2 - stats["reflection_bounces_skipped"]
+    print("K3/K4 twin calls", calls, "reflection bounces issued", issued)
+    # primary + bounce + refraction + one a reflection bounce with a live
+    # mirror ray (a bounce with none is not traced); DI + bounce light +
     # refraction light.
-    assert calls["trace_opaque_mt_plain"] >= 5
+    assert issued >= 1
+    assert calls["trace_opaque_mt_plain"] == 3 + issued
     assert calls["trace_shadow_mt_plain"] >= 3
     assert calls["trace_opaque_plain"] == calls["trace_shadow_plain"] == 0
     _hold("glass convert K3/K4", j, p)
