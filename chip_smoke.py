@@ -5,9 +5,6 @@ Run from the repository root with no arguments:
 
     python3 chip_smoke.py
 
-(`python3 chip_smoke.py multicard` runs phases 1, 2 and 17b alone: on a
-machine with several cards, the bands across them.)
-
 Phases (each prints one JSON line; any failure exits non-zero before the
 result line):
   1. card: nvidia-smi's name and power limit (verbatim), TF32 off;
@@ -130,23 +127,6 @@ result line):
      history concatenated across the bands; SSIM, peaks, band ms; and
      4b's check on every alpha sweep of the last DLSS draw (1920x1080,
      the 4K cell's frame);
- 17b. multicard: tiling.sharded_render with a device list, one worker
-     thread per entry, band b on card b % device_count() (on one card
-     every band on card 0, each in its own worker and stream; the line
-     prints the cards and cross_card_copies): castle GI 1280x720
-     (denoiser off and on) in 2 and 4 bands, 3 frames from zeros with
-     the history carried by replicate_history; the large castle GI
-     (K3/K4) in 2 bands, 2 frames; bench config 5's native reference as
-     bench.native_banded draws it, 4 bands on 4 entries, 4 frames. Gates:
-     17's bounds against the whole frame and against the same bands
-     drawn in turn (bit equality printed), the native RGB8 frame against
-     17's and its alpha drops equal, every band drawn in a worker thread
-     that launched K1 and K2 (K3 and K4 on the large castle). Printed:
-     serial and concurrent frame ms, each worker's band ms and K1-K4
-     launches (CUDA events on its own stream), peak bytes per card read
-     once after a run, bytes and ms of the replication copies and of the
-     gather per frame; and the host seconds of 10,000 tiny adds issued
-     from each of 2 and 4 threads, in turn and at once (the GIL's cost);
  18. inspector: castle 640x480 with one light just ahead of the camera
      and one far behind the castle: after "gizmos on" the rings are
      drawn, pixels in the open take the ring's colour and occluded ones
@@ -199,8 +179,7 @@ FP32_FLOPS_PER_S = 67e12
 # FLOPS_<kernel>[k] is the cost of the stage that a pair reaches by
 # passing k stages. The kernels test only the rays that enter a
 # cluster's box, so their counts, and with them their bounds, are lower
-# than those of the same launches before that cull: PREV_MS holds the
-# earlier times.
+# than those of the same launches before that cull.
 # K1 (Woop): the keep test r_z = W[2] d (3 products, 2 sums); then
 # s_z (6) and t = -s_z / r_z (1); then, t in range, s_x (6), r_x (5),
 # u = s_x + t r_x (2); then, u >= 0, s_y (6), r_y (5), v (2), u + v (1);
@@ -230,18 +209,6 @@ SWEEP_RAY_BYTES, SWEEP_SLOT_BYTES, SWEEP_ENTRY_BYTES = 32, 24, 49
 # planes at the 4K frame's 4,147,200 shadow lanes would not fit beside
 # the frame. A row's result does not depend on the other rows.
 SWEEP_TWIN_SLICE = 1 << 18
-# The kernels before their redesign (one CTA per block, one ray per
-# thread, no cull below the block): the same launches on an NVIDIA H100
-# 80GB HBM3 at 700 W, ms, with the bound each was then held to. K1/K2's
-# bounce launches: the tree before the redesign, timed and bounded on
-# the same launches by utils/kernel_times.py. Recorded constants, not
-# this run's readings: they are printed on the phase lines only, never
-# on the kernels line.
-PREV_MS = {"k1": 0.359, "k2": 1.311, "k1_bounce": 1.508, "k2_bounce": 0.651,
-           "k3": 1.349, "k3_bounce": 12.319, "k4": 6.339, "k4_bounce": 3.995}
-PREV_BOUND_MS = {"k1": 0.0345, "k2": 0.1411, "k1_bounce": 0.0878,
-                 "k2_bounce": 0.0253, "k3": 0.2141, "k3_bounce": 0.8123,
-                 "k4": 0.8542, "k4_bounce": 0.0880}
 CASTLE_W, CASTLE_H = 640, 480
 MAIN_FRAMES = 10
 GI_W, GI_H = 1280, 720
@@ -441,8 +408,7 @@ def closest_hit_phase(tag, call, wrapper, twin, flops_by_stage):
     ms = time_ms(lambda: wrapper(*args, **kw), reps=25)
     ms_batched = batched_ms(lambda: wrapper(*args, **kw))
     work = counted_work(stats, flops_by_stage)
-    work.update(work_item_fields(tag, wrapper, args, kw, shadow=False),
-                prev_ms=PREV_MS.get(tag), prev_bound_ms=PREV_BOUND_MS.get(tag))
+    work.update(work_item_fields(tag, wrapper, args, kw, shadow=False))
     n_bytes = sum(a.numel() * a.element_size()
                   for a in (rays8, clusters, visits, counts, entries))
     n_bytes += 5 * 4 * n
@@ -499,8 +465,7 @@ def occlusion_phase(tag, call, wrapper, twin, flops_by_stage):
     ms = time_ms(lambda: wrapper(*args, **kw), reps=25)
     ms_batched = batched_ms(lambda: wrapper(*args, **kw))
     work = counted_work(stats, flops_by_stage)
-    work.update(work_item_fields(tag, wrapper, args, kw, shadow=True),
-                prev_ms=PREV_MS.get(tag), prev_bound_ms=PREV_BOUND_MS.get(tag))
+    work.update(work_item_fields(tag, wrapper, args, kw, shadow=True))
     n_bytes = sum(a.numel() * a.element_size() for a in args)
     n_bytes += 4 * n
     bms, by = bound_ms(n_bytes, work["flops"])
@@ -674,7 +639,10 @@ def phase_reflections(plain_fb):
         refl_alpha_mean_on_seeds=float(out.gbuffers.refl_alpha[seeds].mean()))
     del out
     profiling.reset_frame_stats()
-    with profiling.inherit_recording(True):
+    # The frame record counts while a profiler records: these frames' ms
+    # include the CPU profiler's cost.
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
         frame_ms, counts, peak = draw_frames(dev, REFL_FRAMES)
     stats = profiling.frame_stats()
     profiling.reset_frame_stats()
@@ -1161,12 +1129,14 @@ def phase_raster():
     before and read just after, all launches of one profiled frame, and
     the device ms and launches of each raster pass and of one
     environment-map gather over the frame's 921,600 rays (one GI and two
-    reflection passes run one each). Returns (row, the scene's device,
-    view)."""
+    reflection passes run one each). K1 launches 2 a render and one a
+    reflection bounce issued (a bounce with no live mirror ray is not).
+    Returns (row, the scene's device, view)."""
     import numpy as np
     import torch
     from rt64tpu_torch.ops import sky
     from rt64tpu_torch.pipeline import framegraph as fg
+    from rt64tpu_torch.utils import profiling
 
     fbs = {}
     for key, hud, bg in (("none", 0, False), ("bg", 0, True), ("full", 12, True)):
@@ -1192,7 +1162,17 @@ def phase_raster():
         black_lit_by_skybox_share=float((fbs["bg"][black] > 0).any(-1).mean()),
         other_pixels_changed_share=float(bg_changed[~black].mean()))
 
-    frame_ms, counts, peak = draw_frames(dev, RASTER_FRAMES)
+    profiling.reset_frame_stats()
+    # As in phase_reflections: the record counts the bounces issued while
+    # a profiler records, and these frames' ms include its cost.
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        frame_ms, counts, peak = draw_frames(dev, RASTER_FRAMES)
+    stats = profiling.frame_stats()
+    profiling.reset_frame_stats()
+    renders = stats["renders"]
+    # A bounce with no live mirror ray is not issued.
+    issued = REFL_BOUNCES * renders - stats["reflection_bounces_skipped"]
     row = frame_row("raster", view, RASTER_FRAMES, frame_ms, counts, peak)
     out, cfg = r._last, r._last_cfg
     sb = r._sb
@@ -1207,6 +1187,7 @@ def phase_raster():
     env = lambda: sky.sample_background_env(planes, dirs)
     row.update(
         width=GI_W, height=GI_H, max_reflections=REFL_BOUNCES, hud_quads=12,
+        renders=renders, bounces_issued=issued,
         raster_bg_triangles=int(host.bg.shape[0]),
         raster_fg_triangles=int(host.fg.shape[0]),
         launches_per_frame_all=launches(dev.draw),
@@ -1216,9 +1197,14 @@ def phase_raster():
         **gates)
     emit(row)
     check_frame(row, view, GI_W, GI_H)
-    check(counts["opaque_launches"] >= (2 + REFL_BOUNCES) * RASTER_FRAMES
+    check(renders >= RASTER_FRAMES and issued >= renders,
+          f"{renders} renders and {issued} reflection bounces issued in "
+          f"{RASTER_FRAMES} castle-raster frames")
+    check(counts["opaque_launches"] == 2 * renders + issued
           and counts["shadow_launches"] >= 2 * RASTER_FRAMES,
-          f"K1/K2 launched {counts} in {RASTER_FRAMES} castle-raster frames")
+          f"K1/K2 launched {counts} in {RASTER_FRAMES} castle-raster frames "
+          f"({renders} renders, {issued} reflection bounces issued): K1 not "
+          f"2 a render and one a bounce issued")
     check(counts["opaque_mt_launches"] == 0 and counts["shadow_mt_launches"] == 0,
           "the castle-raster frame (below the size switch) launched K3 or K4")
     check(sb.features.has_raster_bg and host.fg.shape[0] == 24,
@@ -1983,8 +1969,7 @@ def phase_bench5_fidelity():
     alpha boost 1), SSIM of the uint8 images. The alpha sweeps of the
     last DLSS draw, and the K1 and K2 launches of the first frame's first
     band, are held against their plain twins: (row, {"k1": row,
-    "k2": row}, (the native RGB8 frame, its alpha drops per frame), the
-    sweeps' row)."""
+    "k2": row}, the sweeps' row)."""
     import torch
     from rt64tpu_torch import bench
     from rt64tpu_torch.utils.ssim import ssim
@@ -2037,439 +2022,7 @@ def phase_bench5_fidelity():
     check(row["prod_max"] > 0 and row["native_max"] > 0,
           "a bench5 fidelity frame is black")
     torch.cuda.empty_cache()
-    return (row, kernels_on_largest("native_band", seen),
-            (native_img, drops), sweep)
-
-
-# Phase multicard: tiling.sharded_render with a device list, one worker
-# thread per entry, band b on card b % device_count() (on one card every
-# band runs on card 0, each in its own worker and on its own stream).
-# The bounds are BAND_MEAN_TOL and BAND_MAX_TOL, against the whole frame
-# and against the same bands drawn in turn (devices=None).
-MULTI_BAND_COUNTS = (2, 4)
-MULTI_LARGE_BANDS = 2
-MULTI_LARGE_FRAMES = 2
-# Bench config 5's native reference: 4 bands of 3840x540 on 4 entries
-# (on one card, the memory of all four bands at once).
-MULTI_NATIVE_ENTRIES = 4
-
-
-# The eager-issue probe: tiny adds on the card per thread.
-PROBE_OPS = 10000
-PROBE_THREADS = (2, 4)
-
-
-def eager_issue(threads):
-    """Host seconds to issue PROBE_OPS dependent 16-element adds on the
-    card from each of `threads` threads, each on its own stream: in turn
-    from this thread, then from all threads at once (each run ends in a
-    synchronize). The ops are what a band's frame graph issues tens of
-    thousands of a frame; their ratio is the cost of sharing the GIL."""
-    import threading
-
-    import torch
-
-    x = torch.ones(16, device="cuda")
-    streams = [torch.cuda.Stream() for _ in range(threads)]
-
-    def work(stream):
-        with torch.cuda.stream(stream):
-            y = x
-            for _ in range(PROBE_OPS):
-                y = y + 1.0
-
-    work(streams[0])  # warm-up
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for stream in streams:
-        work(stream)
-    torch.cuda.synchronize()
-    serial = time.perf_counter() - t0
-    workers = [threading.Thread(target=work, args=(s,)) for s in streams]
-    t0 = time.perf_counter()
-    for w in workers:
-        w.start()
-    for w in workers:
-        w.join()
-    torch.cuda.synchronize()
-    return dict(threads=threads, ops_each=PROBE_OPS, serial_s=serial,
-                concurrent_s=time.perf_counter() - t0)
-
-
-def band_devices(n):
-    """Band b's card: b % device_count()."""
-    import torch
-
-    count = torch.cuda.device_count()
-    return [torch.device("cuda", b % count) for b in range(n)]
-
-
-def nbytes(tensors):
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-class ThreadedClock:
-    """Times draws through tiling.sharded_render whose bands run in
-    worker threads: CUDA events on the current stream of the thread that
-    records them, around each call of a fn that sharded_render made
-    inside the block (the frame, on the home card's stream), each band
-    (fg.render_frame, on its worker's stream, with the K1-K4 launches its
-    thread made in it), each replication (replicate_inputs,
-    replicate_history) and each gather (gather_bands), with their bytes.
-    Nothing synchronises or resets a peak inside a band: read()
-    synchronises every card once, after the draws."""
-
-    def __init__(self):
-        import threading
-
-        self.frames, self.bands, self.copies, self.gathers = [], [], [], []
-        self._lock = threading.Lock()
-        self._saved = []
-
-    def _span(self, into, call, size=None, **tags):
-        import torch
-
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        out = call()
-        end.record()
-        with self._lock:
-            into.append(dict(start=start, end=end, **tags,
-                             bytes=None if size is None else size(out)))
-        return out
-
-    def __enter__(self):
-        import threading
-
-        import torch
-        from rt64tpu_torch.ops import tracer_cuda as tc
-        from rt64tpu_torch.parallel import tiling
-        from rt64tpu_torch.pipeline import framegraph as fg
-
-        render_frame = fg.render_frame
-        sharded_render = tiling.sharded_render
-        replicate_inputs = tiling.replicate_inputs
-        replicate_history = tiling.replicate_history
-        gather_bands = tiling.gather_bands
-
-        def band(*a, **kw):
-            thread = threading.current_thread()
-            with tc.launch_counts.thread_counts() as launches:
-                out = self._span(self.bands, lambda: render_frame(*a, **kw),
-                                 band=kw["row_offset"] // a[4].rt_height,
-                                 thread=thread.name,
-                                 worker=thread is not threading.main_thread(),
-                                 launches=launches)
-            return out
-
-        def sharded(*a, **kw):
-            fn = sharded_render(*a, **kw)
-            return lambda *x: self._span(self.frames, lambda: fn(*x))
-
-        def copies_of_inputs(inputs, devices):
-            home = inputs.gp.view.device
-            return self._span(
-                self.copies, lambda: replicate_inputs(inputs, devices),
-                lambda out: sum(nbytes(tiling._tensors(v)) for d, v in out.items()
-                                if d != home))
-
-        def copies_of_history(history, devices):
-            home = history.depth.device
-            return self._span(
-                self.copies, lambda: replicate_history(history, devices),
-                lambda out: nbytes(history) * len({h.depth.device for h in out} - {home}))
-
-        def gather(outs, home, done=()):
-            # The home stream first reaches the end of the workers' work,
-            # so that the span times the gather alone.
-            for event in done:
-                torch.cuda.current_stream(home).wait_event(event)
-            return self._span(
-                self.gathers, lambda: gather_bands(outs, home, done),
-                lambda _: sum(nbytes(tiling._tensors(o)) for o in outs))
-
-        self._saved = [(fg, "render_frame", render_frame, band),
-                       (tiling, "sharded_render", sharded_render, sharded),
-                       (tiling, "replicate_inputs", replicate_inputs,
-                        copies_of_inputs),
-                       (tiling, "replicate_history", replicate_history,
-                        copies_of_history),
-                       (tiling, "gather_bands", gather_bands, gather)]
-        for module, name, _, wrapper in self._saved:
-            setattr(module, name, wrapper)
-        return self
-
-    def __exit__(self, *exc):
-        for module, name, original, _ in self._saved:
-            setattr(module, name, original)
-        return False
-
-    def read(self):
-        """Every card synchronised once; the spans in ms."""
-        import torch
-
-        for d in range(torch.cuda.device_count()):
-            torch.cuda.synchronize(d)
-        ms = lambda r: r["start"].elapsed_time(r["end"])
-        workers = {}
-        for r in self.bands:
-            if r["worker"]:
-                w = workers.setdefault(r["thread"], dict(
-                    bands=[], band_ms=[], launches=dict.fromkeys(r["launches"], 0)))
-                w["bands"].append(r["band"])
-                w["band_ms"].append(ms(r))
-                for k, v in r["launches"].items():
-                    w["launches"][k] += v
-        return dict(
-            frame_ms=[ms(r) for r in self.frames],
-            workers=workers,
-            main_thread_bands=sum(not r["worker"] for r in self.bands),
-            worker_bands=[(r["band"], r["launches"]) for r in self.bands
-                          if r["worker"]],
-            copy_bytes=sum(r["bytes"] for r in self.copies),
-            copy_ms=sum(ms(r) for r in self.copies),
-            gather_bytes=sum(r["bytes"] for r in self.gathers),
-            gather_ms=sum(ms(r) for r in self.gathers))
-
-
-def worker_launches(reading, key):
-    return sum(w["launches"][key] for w in reading["workers"].values())
-
-
-def check_worker_bands(what, reading, n_bands, frames, keys):
-    """Every band of every frame ran in a worker thread and launched each
-    kernel of `keys` there."""
-    bands = reading["worker_bands"]
-    check(len(bands) == n_bands * frames and not reading["main_thread_bands"],
-          f"{what}: {len(bands)} bands in workers, "
-          f"{reading['main_thread_bands']} on the main thread")
-    for b, launches in bands:
-        check(all(launches[k] >= 1 for k in keys),
-              f"{what}: band {b} launched {launches} in its worker")
-
-
-def peaks_reset(devices):
-    import torch
-
-    for d in dict.fromkeys(devices):
-        torch.cuda.synchronize(d)
-        torch.cuda.reset_peak_memory_stats(d)
-
-
-def peaks_read(devices):
-    import torch
-
-    return {str(d): torch.cuda.max_memory_allocated(d)
-            for d in dict.fromkeys(devices)}
-
-
-def multicard_scene(tag, r, cfg, gp0, bg, n, frames, denoiser, whole, keys):
-    """One scene in n bands, `frames` frames from zero history each: in
-    turn on card 0 (devices=None) and at once (band_devices(n), the
-    history carried by replicate_history), each frame against the whole
-    frame (`whole`: (image, instance image, drops) per frame) and the
-    concurrent frame against the serial one. (row, reading)."""
-    import torch
-    from rt64tpu_torch.parallel import tiling
-    from rt64tpu_torch.pipeline import framegraph as fg
-
-    devices = band_devices(n)
-    home = devices[0]
-    h, w = cfg.rt_height, cfg.rt_width
-    band = tiling.shard_config(cfg, n)
-    edge = torch.zeros(h, dtype=torch.bool, device=home)
-    if denoiser:
-        for b in range(1, n):
-            lo = b * band.rt_height
-            edge[lo - cfg.gi_filter_passes: lo + cfg.gi_filter_passes] = True
-    gp_of = lambda f: gp0._replace(frame_count=torch.tensor(f, device=home))
-
-    serial_fn = tiling.sharded_render(cfg, n)
-    hist = fg.History.zeros(h, w, home)
-    serial, serial_ms = [], []
-    for f in range(frames):
-        out, ms = timed(lambda: serial_fn(r._sb, gp_of(f), hist, r.bn_table, bg))
-        hist = out.history
-        serial.append((out.image, out.gbuffers.instance, out.history,
-                       int(out.alpha_dropped)))
-        serial_ms.append(ms)
-        del out
-
-    peaks_reset(devices)
-    per_frame = []
-    with ThreadedClock() as clock:
-        fn = tiling.sharded_render(cfg, n, devices)
-        # One entry a band: every entry draws, so these are the copies for
-        # the workers that fn takes.
-        hist = tiling.replicate_history(fg.History.zeros(h, w, home), devices)
-        for f in range(frames):
-            out = fn(r._sb, gp_of(f), hist, r.bn_table, bg)
-            hist = tiling.replicate_history(out.history, devices)
-            w_img, w_inst, w_drop = whole[f]
-            s_img, s_inst, s_hist, s_drop = serial[f]
-            inst = tiling.to_image_banded(cfg, n, out.gbuffers.instance)
-            diff = (out.image - w_img).abs()
-            keep = diff[:, ~edge]
-            vs_serial = (out.image - s_img).abs()
-            per_frame.append(dict(
-                mean_abs=float(keep.mean()), max_abs=float(keep.max()),
-                edge_max_abs=float(diff[:, edge].max()) if denoiser else None,
-                instance_equal=bool(torch.equal(inst, w_inst)),
-                serial_mean_abs=float(vs_serial.mean()),
-                serial_max_abs=float(vs_serial.max()),
-                serial_instance_equal=bool(torch.equal(out.gbuffers.instance,
-                                                       s_inst)),
-                serial_equal_bits=bool(
-                    torch.equal(out.image, s_img)
-                    and torch.equal(out.gbuffers.instance, s_inst)
-                    and all(torch.equal(a, b)
-                            for a, b in zip(out.history, s_hist))),
-                dropped_whole=w_drop, dropped_serial=s_drop,
-                dropped_bands=int(out.alpha_dropped)))
-            del out, inst, diff, keep, vs_serial
-    reading = clock.read()
-    peaks = peaks_read(devices)
-    row = dict(run=tag, bands=n, rows=band.rt_height, tiled=band.tiled,
-               band_devices=[str(d) for d in devices],
-               serial_frame_ms=serial_ms, frame_ms=reading["frame_ms"],
-               workers=reading["workers"], peak_bytes=peaks,
-               copy_bytes_per_frame=reading["copy_bytes"] / frames,
-               copy_ms_per_frame=reading["copy_ms"] / frames,
-               gather_bytes_per_frame=reading["gather_bytes"] / frames,
-               gather_ms_per_frame=reading["gather_ms"] / frames,
-               frames=per_frame)
-    for k, fr in enumerate(per_frame):
-        what = f"multicard {tag} {n} bands frame {k}"
-        check(fr["mean_abs"] < BAND_MEAN_TOL and fr["max_abs"] < BAND_MAX_TOL,
-              f"{what}: mean {fr['mean_abs']} max {fr['max_abs']} from the "
-              "whole frame")
-        check(fr["serial_mean_abs"] < BAND_MEAN_TOL
-              and fr["serial_max_abs"] < BAND_MAX_TOL,
-              f"{what}: mean {fr['serial_mean_abs']} max "
-              f"{fr['serial_max_abs']} from the serial bands")
-        check(fr["instance_equal"] and fr["serial_instance_equal"],
-              f"{what}: instance planes differ")
-        check(fr["dropped_whole"] == fr["dropped_serial"]
-              == fr["dropped_bands"] == 0, f"{what}: alpha hits dropped")
-    check_worker_bands(f"multicard {tag} {n} bands", reading, n, frames, keys)
-    del serial, hist
-    torch.cuda.empty_cache()
-    return row, reading
-
-
-def whole_frames(r, cfg, gp0, bg, frames):
-    """The whole frame `frames` times from zero history: (image, instance
-    image, drops) per frame."""
-    import torch
-    from rt64tpu_torch.pipeline import framegraph as fg
-
-    home = r.bn_table.device
-    hist = fg.History.zeros(cfg.rt_height, cfg.rt_width, home)
-    whole = []
-    for f in range(frames):
-        gp = gp0._replace(frame_count=torch.tensor(f, device=home))
-        out = fg.render_frame(r._sb, gp, hist, r.bn_table, cfg, bg_planes=bg)
-        hist = out.history
-        whole.append((out.image, fg.to_image(cfg, out.gbuffers.instance),
-                      int(out.alpha_dropped)))
-        del out
-    return whole
-
-
-def phase_multicard(native_serial):
-    """The bands at once (see multicard_scene): castle GI 1280x720 with
-    the denoiser off and on in 2 and 4 bands, BAND_FRAMES frames; the
-    large castle GI (K3/K4) in 2 bands, 2 frames; bench config 5's native
-    reference as bench.native_banded draws it, 4 bands on
-    MULTI_NATIVE_ENTRIES entries, NATIVE_FRAMES frames, against
-    native_serial ((RGB8 image, drops per frame) of phase bench5_fidelity's
-    bands in turn). Returns the launches made in worker threads, per
-    kernel and run."""
-    import numpy as np
-    import torch
-    from rt64tpu_torch import bench
-    from rt64tpu_torch.utils.castle_scene import build_castle_scene
-
-    t0 = time.perf_counter()
-    count = torch.cuda.device_count()
-    head = dict(phase="multicard", cards=count, cross_card_copies=count > 1,
-                eager_issue=[eager_issue(k) for k in PROBE_THREADS])
-    k12 = ("opaque_launches", "shadow_launches")
-    k34 = ("opaque_mt_launches", "shadow_mt_launches")
-    runs, launches = [], {}
-
-    def record(tag, reading, keys):
-        for k in keys + ("alpha_sweep_launches",):
-            launches.setdefault(k, {})[tag] = worker_launches(reading, k)
-
-    for denoiser in (False, True):
-        dev, _, view = build_castle_scene(GI_W, GI_H, di_samples=1,
-                                          gi_samples=1, denoiser=denoiser)
-        view.max_reflections = 0
-        dev.draw()  # settles the boost ladder
-        r = view._renderer
-        cfg = r._last_cfg
-        gp0, bg = r._global_params(cfg), r._background_planes(cfg)
-        whole = whole_frames(r, cfg, gp0, bg, BAND_FRAMES)
-        for n in MULTI_BAND_COUNTS:
-            tag = f"castle_gi{'_denoiser' if denoiser else ''}_bands{n}"
-            row, reading = multicard_scene(tag, r, cfg, gp0, bg, n, BAND_FRAMES,
-                                           denoiser, whole, k12)
-            runs.append(row)
-            record(tag, reading, k12)
-        del dev, view, r, whole
-        torch.cuda.empty_cache()
-
-    dev, view = build_large_castle()
-    dev.draw()  # settles the boost ladder
-    r = view._renderer
-    cfg = r._last_cfg
-    gp0, bg = r._global_params(cfg), r._background_planes(cfg)
-    whole = whole_frames(r, cfg, gp0, bg, MULTI_LARGE_FRAMES)
-    tag = f"large_gi_bands{MULTI_LARGE_BANDS}"
-    row, reading = multicard_scene(tag, r, cfg, gp0, bg, MULTI_LARGE_BANDS,
-                                   MULTI_LARGE_FRAMES, True, whole, k34)
-    runs.append(row)
-    record(tag, reading, k34)
-    del dev, view, r, whole
-    torch.cuda.empty_cache()
-
-    rung = bench.CONFIGS[5]
-    devices = band_devices(MULTI_NATIVE_ENTRIES)
-    peaks_reset(devices)
-    with ThreadedClock() as clock:
-        t1 = time.perf_counter()
-        image, drops = bench.native_banded(*rung[:6], NATIVE_BANDS,
-                                           NATIVE_FRAMES, devices=devices)
-        native_s = time.perf_counter() - t1
-    reading = clock.read()
-    serial_img, serial_drops = native_serial
-    diff = np.abs(image.astype(np.float64) - serial_img.astype(np.float64)) / 255.0
-    tag = f"native_bands{NATIVE_BANDS}"
-    runs.append(dict(
-        run=tag, bands=NATIVE_BANDS, rows=rung[2] // NATIVE_BANDS,
-        entries=MULTI_NATIVE_ENTRIES, band_devices=[str(d) for d in devices],
-        frame_ms=reading["frame_ms"], seconds=native_s,
-        workers=reading["workers"], peak_bytes=peaks_read(devices),
-        copy_bytes_per_frame=reading["copy_bytes"] / NATIVE_FRAMES,
-        copy_ms_per_frame=reading["copy_ms"] / NATIVE_FRAMES,
-        gather_bytes_per_frame=reading["gather_bytes"] / NATIVE_FRAMES,
-        gather_ms_per_frame=reading["gather_ms"] / NATIVE_FRAMES,
-        serial_mean_abs=float(diff.mean()), serial_max_abs=float(diff.max()),
-        serial_equal_bits=bool(np.array_equal(image, serial_img)),
-        alpha_dropped=drops, serial_alpha_dropped=serial_drops))
-    record(tag, reading, k12)
-    emit(dict(head, runs=runs, seconds=time.perf_counter() - t0))
-    check(diff.mean() < BAND_MEAN_TOL and diff.max() < BAND_MAX_TOL,
-          f"multicard {tag}: mean {diff.mean()} max {diff.max()} from the "
-          "serial bands")
-    check(drops == serial_drops,
-          f"multicard {tag}: alpha drops {drops}, serial {serial_drops}")
-    check_worker_bands(f"multicard {tag}", reading, NATIVE_BANDS,
-                       NATIVE_FRAMES, k12)
-    torch.cuda.empty_cache()
-    return launches
+    return row, kernels_on_largest("native_band", seen), sweep
 
 
 def gizmo_ring(view, light, w, h):
@@ -2862,9 +2415,9 @@ def result_line():
 
 
 def run(args):
-    if args not in ([], ["multicard"]):
-        print(f"chip_smoke: unknown arguments {args}; run it with none, or "
-              "with 'multicard' for phase 17b alone", file=sys.stderr)
+    if args:
+        print(f"chip_smoke: unknown arguments {args}; run it with none",
+              file=sys.stderr)
         return 2
     try:
         import torch
@@ -2903,16 +2456,6 @@ def run(args):
              if "registers" in l or "spill" in l]
     emit(dict(phase="build", seconds=time.perf_counter() - t0,
               nvcc_seconds=lib.build_seconds, library=lib.path, ptxas=ptxas))
-
-    if args == ["multicard"]:
-        # Phase 17b alone (on a machine with several cards: the bands
-        # across them), against bench config 5's native bands in turn.
-        from rt64tpu_torch import bench
-
-        phase_multicard(bench.native_banded(*bench.CONFIGS[5][:6], NATIVE_BANDS,
-                                            NATIVE_FRAMES))
-        result_line()
-        return 0
 
     # 3-4. K1 and K2 on the castle frame's own launches
     dev, _, view = build_castle_scene(CASTLE_W, CASTLE_H, di_samples=1,
@@ -2993,10 +2536,7 @@ def run(args):
     streamed, k_streamed = phase_streamed()
     phase_midframe()
     _, banded_counts = phase_banded_castle()
-    _, k_native, native_serial, sweep["bench5"] = phase_bench5_fidelity()
-    # 17b. the bands at once, one worker thread per device entry
-    multicard = phase_multicard(native_serial)
-    del native_serial
+    _, k_native, sweep["bench5"] = phase_bench5_fidelity()
     phase_inspector()
 
     # 19. the C ABI: both sample hosts on the card; 20. DDS textures;
@@ -3011,8 +2551,7 @@ def run(args):
     measured = ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")
     # Every kernel also carries its bounce launch's numbers, as
     # bounce_<key>. Every number of this line but bound_ms was measured in
-    # this run (the earlier design's times stand on the phase lines, as
-    # prev_ms).
+    # this run.
     # K1 and K3 also carry their first reflection launch's, as
     # reflection_<key>, with the launches of the path that ran them: the
     # 10 castle-refl frames (K1), the recorded large-castle-refl draw (K3).
@@ -3023,10 +2562,7 @@ def run(args):
     # frame (denoiser off and on, 2 and 4 bands, and the moving camera
     # with the denoiser), as banded_launches, in
     # each sample host's calls made through the C ABI, as abi_launches, and
-    # in the trainer's render_pairs, as train_launches. All four carry the
-    # launches made in the worker threads of phase multicard, per run, as
-    # multicard_launches (K1/K2: castle GI and bench config 5's native
-    # reference; K3/K4: the large castle GI).
+    # in the trainer's render_pairs, as train_launches.
     # K1 and K2 also carry the numbers of their largest launches in one
     # streamed config-4 frame, as streamed_<key>, and in the first band
     # of bench config 5's native reference, as native_band_<key>.
@@ -3054,7 +2590,6 @@ def run(args):
                streamed_launches={m: row["opaque_launches"]
                                   for m, row in streamed.items()},
                banded_launches=band_launches(banded_counts, "opaque_launches"),
-               multicard_launches=multicard["opaque_launches"],
                abi_launches={h: c["opaque_launches"]
                              for h, c in abi["launches"].items()},
                train_launches=train["opaque_launches"]),
@@ -3066,17 +2601,14 @@ def run(args):
                streamed_launches={m: row["shadow_launches"]
                                   for m, row in streamed.items()},
                banded_launches=band_launches(banded_counts, "shadow_launches"),
-               multicard_launches=multicard["shadow_launches"],
                abi_launches={h: c["shadow_launches"]
                              for h, c in abi["launches"].items()},
                train_launches=train["shadow_launches"]),
         kernel("trace_opaque_walk<MtClusters> (K3)", "mt_tracer.cu", 572,
                large["opaque_mt_launches"], k3,
-               k3["reflection"]["launches_per_frame"],
-               multicard_launches=multicard["opaque_mt_launches"]),
+               k3["reflection"]["launches_per_frame"]),
         kernel("trace_shadow_walk<MtClusters> (K4)", "mt_tracer.cu", 1303,
-               large["shadow_mt_launches"], k4,
-               multicard_launches=multicard["shadow_mt_launches"]),
+               large["shadow_mt_launches"], k4),
         dict(name="alpha_sweep_kernel<K, CULL>", route="cuda",
              source="rt64tpu_torch/csrc/alpha_sweep.cu", replaces=None,
              launches=main["alpha_sweep_launches"],
@@ -3092,7 +2624,6 @@ def run(args):
                                 for m, row in streamed.items()},
              banded_launches=band_launches(banded_counts,
                                            "alpha_sweep_launches"),
-             multicard_launches=multicard["alpha_sweep_launches"],
              abi_launches={h: c["alpha_sweep_launches"]
                            for h, c in abi["launches"].items()},
              train_launches=train["alpha_sweep_launches"]),

@@ -190,14 +190,13 @@ def measure_streamed(scene_name, width, height, di, gi, reflections,
 
 
 def native_banded(scene_name, width, height, di, gi, reflections, bands,
-                  frames, device=None, devices=None):
+                  frames, device=None):
     """The native frame (upscaler off) drawn in `bands` bands of rows
     through tiling.sharded_render, `frames` frames from zero history with
     the history concatenated across the bands, at a fresh renderer's
     config (alpha boost 1, as bench.py draws it): (the last frame's RGB8
-    image (H, W, 3) numpy, the alpha hits dropped in each frame).
-    devices: sharded_render's (None: the bands in turn on `device`; a
-    list: one worker per entry, with `device` its first entry)."""
+    image (H, W, 3) numpy, the alpha hits dropped in each frame). The
+    bands are drawn in turn on `device`."""
     from rt64tpu_torch.parallel import tiling
     from rt64tpu_torch.pipeline import framegraph as fg
 
@@ -207,7 +206,7 @@ def native_banded(scene_name, width, height, di, gi, reflections, bands,
     cfg = r._config()
     bg = r._background_planes(cfg)
     gp0 = r._global_params(cfg)
-    render = tiling.sharded_render(cfg, bands, devices)
+    render = tiling.sharded_render(cfg, bands)
     hist = fg.History.zeros(cfg.rt_height, cfg.rt_width, r.device)
     drops = []
     for f in range(frames):

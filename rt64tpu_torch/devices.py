@@ -1,9 +1,8 @@
-"""Device names that mean the same card in every thread.
+"""Device names that key a card by its index.
 
-A bare torch.device("cuda") names the calling thread's current card,
-so in a worker thread of parallel/tiling.py, whose current card is its
-band's, the same name means another card. Devices that key a cache or
-name where a copy goes carry their index."""
+A bare torch.device("cuda") names whichever card is current when it is
+used. A device that keys a cache or a Device (api.resolve_device, the
+learned slot's nets) carries its index, so that it names one card."""
 
 from __future__ import annotations
 

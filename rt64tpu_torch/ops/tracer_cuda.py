@@ -76,7 +76,6 @@ either pair can serve any scene size.
 
 from __future__ import annotations
 
-import contextlib
 import ctypes
 import hashlib
 import os
@@ -148,17 +147,14 @@ _BUILD_DIR = os.path.join(os.path.dirname(_PKG_DIR), "build", "rt64tpu_torch")
 class LaunchCounts:
     """Kernel launches per wrapper: each wrapper adds one where it
     launches its kernel, and nowhere else. The counts are the whole
-    process's, whatever thread launched (the bands of
-    parallel/tiling.py launch from worker threads); a thread inside
-    thread_counts() also counts its own launches there. While a
-    profiler records, each launch also goes to the frame record
-    (profiling.count_launch), where a CPU twin's call counts as well.
-    The lock and the thread's own counts are class attributes, so
-    vars() of the instance holds the counts alone."""
+    process's, whatever thread launched (a C host may draw from several),
+    under one lock. While a profiler records, each launch also goes to
+    the frame record (profiling.count_launch), where a CPU twin's call
+    counts as well. The lock is a class attribute, so vars() of the
+    instance holds the counts alone."""
 
     NAMES = profiling.LAUNCHES  # K1, K2, K3, K4, alpha_sweep_kernel
     _lock = threading.Lock()
-    _local = threading.local()
 
     def __init__(self):
         self.reset()
@@ -173,24 +169,6 @@ class LaunchCounts:
         with self._lock:
             setattr(self, name, getattr(self, name) + 1)
         profiling.count_launch(name)
-        own = getattr(self._local, "counts", None)
-        if own is not None:
-            own[name] += 1
-
-    @contextlib.contextmanager
-    def thread_counts(self):
-        """{name: launches} made by this thread inside the block (filled
-        as it runs); the totals count them as well."""
-        outer = getattr(self._local, "counts", None)
-        own = dict.fromkeys(self.NAMES, 0)
-        self._local.counts = own
-        try:
-            yield own
-        finally:
-            self._local.counts = outer
-            if outer is not None:
-                for name, n in own.items():
-                    outer[name] += n
 
 
 launch_counts = LaunchCounts()
@@ -446,7 +424,7 @@ def kernel_library() -> KernelLibrary:
     linked into one shared library. The build output is cached under
     build/rt64tpu_torch/ by a hash of every file under csrc/. Loaded
     once a process: a thread that comes while another builds waits for
-    that build."""
+    that build (a C host may draw from several threads)."""
     global _library
     with _library_lock:
         if _library is None:
@@ -785,10 +763,11 @@ def _launch_opaque(fn, float4s, packer, rays8, clusters, visits, counts,
     bias = torch.empty(n, dtype=torch.float32, device=dev)
     stats_ptr = _stats_ptr(stats, n_blocks, dev)
     launch = getattr(kernel_library().lib, fn)
-    # The CUDA runtime launches on the calling thread's current device (a
-    # fresh thread's is card 0), not on the device of the stream it is
-    # given, and the walk's grid reads cudaGetDevice: the inputs' device
-    # is made the current one around every launch.
+    # The CUDA runtime launches on the calling thread's current device,
+    # not on the device of the stream it is given, and the walk's grid
+    # reads cudaGetDevice: a Device("cuda:1") draws while card 0 may be
+    # current, so the inputs' device is made the current one around
+    # every launch.
     with torch.cuda.device(dev):
         err = launch(
             rays8.data_ptr(), n_blocks, packed.data_ptr(), packed.shape[0],

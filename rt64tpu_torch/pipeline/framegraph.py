@@ -163,20 +163,6 @@ class History(NamedTuple):
                        indirect=z(4, n))
 
 
-def global_params_to(gp: GlobalParams, device) -> GlobalParams:
-    """gp with its tensors on `device` (non-blocking copies; a tensor
-    already there is itself); pixel_jitter stays host floats."""
-    return gp._replace(**{
-        f: getattr(gp, f).to(device, non_blocking=True)
-        for f in GlobalParams._fields if f != "pixel_jitter"})
-
-
-def history_to(history: History, device) -> History:
-    """The history on `device` (non-blocking copies; a plane already
-    there is itself)."""
-    return History(*(p.to(device, non_blocking=True) for p in history))
-
-
 class GBuffers(NamedTuple):
     """Primary-pass outputs (GlobalBuffers.hlsli u0-u15), planar."""
 

@@ -96,16 +96,6 @@ class SceneBuffers(NamedTuple):
     raster_host: Optional[RasterHost] = None
 
 
-def scene_buffers_to(sb: SceneBuffers, device) -> SceneBuffers:
-    """sb with its tensors on `device` (non-blocking copies; a tensor
-    already there is itself, no copy); features and raster_host stay the
-    host objects they are."""
-    return sb._replace(**{
-        f: getattr(sb, f).to(device, non_blocking=True)
-        for f in SceneBuffers._fields
-        if isinstance(getattr(sb, f), torch.Tensor)})
-
-
 def _addr_np(i, size, mode):
     if mode == d.SHADER_ADDRESSING_WRAP:
         return np.mod(i, size)

@@ -47,8 +47,6 @@ import torch
 from torch._C._autograd import _profiler_enabled
 from torch._C._profiler import _RecordFunctionFast
 
-_local = threading.local()
-
 # The tracing wrappers' launch counters (ops/tracer_cuda.LaunchCounts).
 LAUNCHES = ("opaque_launches",  # K1
             "shadow_launches",  # K2
@@ -62,23 +60,8 @@ REFLECTION = ("reflection_live_rays",  # live mirror rays, summed over bounces
 
 
 def recording() -> bool:
-    """True while a torch profiler records on this thread, or while the
-    thread works for one that does (inherit_recording)."""
-    return _profiler_enabled() or getattr(_local, "inherited", False)
-
-
-@contextlib.contextmanager
-def inherit_recording(on: bool):
-    """Record this thread's stages and uploads as the thread that hands
-    it work would (`on`: its recording()). A torch profiler records the
-    thread that started it, not threads that thread starts: the band
-    workers of parallel/tiling.py take their frame's state with this."""
-    outer = getattr(_local, "inherited", False)
-    _local.inherited = on
-    try:
-        yield
-    finally:
-        _local.inherited = outer
+    """True while a torch profiler records on this thread."""
+    return _profiler_enabled()
 
 
 def span(name: str):
@@ -93,8 +76,7 @@ class FrameRecord:
     and bands included), each stage's ms and calls, the bytes upload()
     copied, the tracing wrappers' launches (LAUNCHES) and the reflection
     bounces' counters (REFLECTION). The whole process's, whatever thread
-    added (band workers add their stages under the same names), under
-    one lock like tracer_cuda.LaunchCounts."""
+    added, under one lock like tracer_cuda.LaunchCounts."""
 
     _lock = threading.Lock()
 

@@ -150,7 +150,8 @@ def counted_bounces(*args):
     """reflection_bounces(*args) and the frame record's reflection
     counters over the call."""
     profiling.reset_frame_stats()
-    with profiling.inherit_recording(True):
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
         out = fg.reflection_bounces(*args)
     st = profiling.frame_stats()
     profiling.reset_frame_stats()

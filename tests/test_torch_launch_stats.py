@@ -13,7 +13,8 @@ of the size switch (tracer_cuda.clusters_resident; RESIDENT_TABLE_BYTES
 - The table build runs in `rt64.trace.tables` once a draw (the frame's
   scene tensors are new), and a trace of the same scene again reuses
   the tables without the span.
-- Band workers add their launches to the one record.
+- A frame drawn in two bands (parallel/tiling.py, in turn) adds both
+  bands' launches to the one record.
 """
 
 import collections
@@ -129,7 +130,7 @@ def test_band_workers_add_their_launches(monkeypatch):
     dev.draw()
     r = view._renderer
     cfg = r._config()
-    fn = tiling.sharded_render(cfg, 2, devices=["cpu", "cpu"])
+    fn = tiling.sharded_render(cfg, 2)
     gp = r._global_params(cfg)
     calls = _spy(monkeypatch)
     profiling.reset_frame_stats()

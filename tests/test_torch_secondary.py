@@ -413,7 +413,8 @@ def test_glass_frame_k3_k4_twins(glass_frames, monkeypatch):
         monkeypatch.setattr(tc, name, counted)
     j, state, _ = glass_frames
     profiling.reset_frame_stats()
-    with profiling.inherit_recording(True):
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
         p = _port_convert(state)
     stats = profiling.frame_stats()
     profiling.reset_frame_stats()

@@ -9,12 +9,13 @@ reflection bounces, so that every pass of the frame graph runs.
   counts the draw, its renders and each stage.
 - A draw after Mesh.set_mesh counts at least the mesh's packed bytes
   more than a draw that re-sets no geometry.
-- Two band workers add their stages to the one record, and threads
-  adding at once lose nothing.
+- A frame drawn in two bands (parallel/tiling.py, in turn) adds both
+  bands' stages to the one record, and threads adding at once lose
+  nothing.
 """
 
 import sys
-import threading
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -150,7 +151,7 @@ def test_a_reset_mesh_counts_its_packed_bytes(drawn):
 def test_band_workers_keep_one_record(drawn):
     r = drawn["view"]._renderer
     cfg = r._config()
-    fn = tiling.sharded_render(cfg, 2, devices=["cpu", "cpu"])
+    fn = tiling.sharded_render(cfg, 2)
     gp = r._global_params(cfg)
     profiling.reset_frame_stats()
     with profile(activities=[ProfilerActivity.CPU]):
@@ -176,12 +177,9 @@ def test_threads_adding_at_once_lose_nothing():
 
     sys.setswitchinterval(1e-6)
     try:
-        workers = [threading.Thread(target=add) for _ in range(threads)]
-        for w in workers:
-            w.start()
-        for w in workers:
-            w.join(timeout=60)
-        assert not any(w.is_alive() for w in workers)
+        with ThreadPoolExecutor(threads) as pool:
+            for added in [pool.submit(add) for _ in range(threads)]:
+                added.result(timeout=60)
     finally:
         sys.setswitchinterval(interval)
     st = rec.stats()

@@ -11,10 +11,20 @@ on the CPU.
   (the bound of the port's frame tests at 64 wide; measured: equal). The
   camera is still: the JAX package scales a band's flow by the band's
   rows (ROADMAP queue 3).
+- The glass sample in 4 bands against the JAX package's frame sharded
+  over a mesh of 4 CPU devices (its tiling.sharded_render): RGB8 and
+  instance planes equal (64 wide is one tile column, where the port's
+  bands are byte-equal to the JAX package's), no alpha drops, history
+  planes within the bound of the port's other float-plane parity tests
+  against the JAX package (rtol = atol = 1e-5, tests/test_torch_gi.py;
+  measured: 5.1e-6, the per-pixel arithmetic of XLA on the CPU against
+  torch's, which the bands do not change).
 - sharded_render in 2, 4 and 8 bands equals the port's whole frame with
   the denoiser off (the JAX package's tests/test_parallel.py bounds: mean
   abs < 1e-6, max abs < 1e-4, instance planes equal): the glass sample
-  and the castle at 128x64 (measured: equal bit for bit).
+  and the castle at 128x64, each band count drawn once and held plane by
+  plane: the image (and no alpha drops), the instance, flow and depth
+  planes, and the history planes.
 - 128x40 in two untiled bands of 20 rows while the whole frame is tiled,
   3 frames with the denoiser (GI reprojection on): the same bounds on
   the rows farther than gi_filter_passes from the band edge, whose GI
@@ -28,7 +38,8 @@ on the CPU.
   (band-edge rows excluded with the denoiser, as above), flow, depth,
   instance and history planes equal the whole frame's with the same
   bounds, the history carried across frames on each side, so
-  reprojection reads across band edges. The port scales a band's flow
+  reprojection reads across band edges; the frames are drawn once for
+  each band count and held plane by plane. The port scales a band's flow
   by the whole frame's rows; on the same moved camera the JAX package's
   band (its render_frame with row_offset) has a flow y smaller by the
   factor grid_height / band rows (ROADMAP queue 3, fixed in the port).
@@ -57,10 +68,10 @@ from rt64tpu_torch.utils.testscenes import build_sample_scene as port_sample
 from rt64tpu_torch.utils.testscenes import hud_triangle
 
 MEAN_TOL, MAX_TOL = 1e-6, 1e-4
-# Flow against the JAX package: pixel differences of screen positions,
-# XLA's CPU arithmetic against torch's (the float-plane parity bound of
-# tests/test_torch_gi.py).
-FLOW_TOL = dict(rtol=1e-5, atol=1e-5)
+# Float planes against the JAX package (the flow: pixel differences of
+# screen positions; the history planes): XLA's CPU arithmetic against
+# torch's (the float-plane parity bound of tests/test_torch_gi.py).
+PARITY_TOL = dict(rtol=1e-5, atol=1e-5)
 # The moving camera: frames, and the turn before each (degrees of pitch
 # and of yaw in view space).
 MOVE_FRAMES = 3
@@ -194,9 +205,60 @@ def test_jax_band_flow_is_scaled_by_the_band_rows(jax_bands, b):
     assert np.abs(port[1]).max() >= 1.0  # the camera moved vertically
     factor = band.grid_height / band.rt_height
     assert factor == 2
-    np.testing.assert_allclose(port[0], jax_flow[0], **FLOW_TOL)
-    np.testing.assert_allclose(port[1], jax_flow[1] * factor, **FLOW_TOL)
-    assert not np.allclose(port[1], jax_flow[1], **FLOW_TOL)
+    np.testing.assert_allclose(port[0], jax_flow[0], **PARITY_TOL)
+    np.testing.assert_allclose(port[1], jax_flow[1] * factor, **PARITY_TOL)
+    assert not np.allclose(port[1], jax_flow[1], **PARITY_TOL)
+
+
+@pytest.fixture(scope="module")
+def jax_mesh_frame():
+    """The glass sample drawn by the JAX package over a mesh of 4 CPU
+    devices (tests/test_parallel.py's), and the same inputs carried to
+    the port."""
+    _, _, view = _glass(jax_sample)
+    view.update()
+    r = view._renderer
+    cfg = dataclasses.replace(r._config(), alpha_shade_boost=16)
+    assert cfg.refraction_enabled
+    gp = r._global_params(cfg)
+    bg = r._background_planes(cfg)
+    fn = jtiling.sharded_render(jtiling.make_mesh(jax.devices()[:4]), cfg)
+    out = fn(r._sb, gp, jfg.History.zeros(cfg.rt_height, cfg.rt_width),
+             r.bn_table, bg)
+    jout = dict(image=np.asarray(out.image),
+                instance=np.asarray(out.gbuffers.instance),
+                dropped=int(np.asarray(out.alpha_dropped)),
+                history=[np.asarray(p) for p in out.history])
+    sb = r._sb
+    port_in = dict(
+        sb=scene_buffers_from_numpy(
+            {f: (None if getattr(sb, f) is None else np.asarray(getattr(sb, f)))
+             for f in sb._fields if f != "features"}, sb.features, "cpu"),
+        gp=global_params_from_numpy(
+            {f: np.asarray(getattr(gp, f)) for f in pfg.GlobalParams._fields},
+            "cpu"),
+        bg=torch.from_numpy(np.array(bg)),
+        cfg=_cfg_to_port(cfg))
+    return jout, port_in
+
+
+def test_four_bands_match_jax_mesh(jax_mesh_frame):
+    jout, inp = jax_mesh_frame
+    cfg = inp["cfg"]
+    bn = torch.from_numpy(bluenoise.packed_table())
+    fn = tiling.sharded_render(cfg, 4)
+    out = fn(inp["sb"], inp["gp"],
+             pfg.History.zeros(cfg.rt_height, cfg.rt_width, "cpu"), bn,
+             inp["bg"])
+    assert jout["dropped"] == 0 and int(out.alpha_dropped) == 0
+    np.testing.assert_array_equal(
+        pfg.present_rgb8(out.image).numpy(),
+        pfg.present_rgb8(torch.from_numpy(jout["image"])).numpy())
+    np.testing.assert_array_equal(out.gbuffers.instance.numpy(),
+                                  jout["instance"])
+    for name, p, j in zip(pfg.History._fields, out.history, jout["history"]):
+        assert p.shape == j.shape, name
+        np.testing.assert_allclose(p.numpy(), j, err_msg=name, **PARITY_TOL)
 
 
 def _frame_inputs(view):
@@ -205,15 +267,41 @@ def _frame_inputs(view):
     return r, cfg, r._global_params(cfg), r._background_planes(cfg)
 
 
+def compare_plane(cfg, n, whole, banded, plane, keep_rows=None):
+    """One plane of a frame drawn in n bands against the whole frame:
+    "image" on the rows keep_rows (None: every row) within MEAN_TOL and
+    MAX_TOL, with no alpha hit dropped on either side; "instance" equal;
+    "flow", "depth" and "history" (each of its planes) on every row (the
+    GI filter writes none of them) within MEAN_TOL and MAX_TOL."""
+    if plane == "image":
+        keep = slice(None) if keep_rows is None else keep_rows
+        assert banded.image.shape == whole.image.shape
+        diff = (whole.image - banded.image).abs()[:, keep]
+        assert float(diff.mean()) < MEAN_TOL
+        assert float(diff.max()) < MAX_TOL
+        assert int(whole.alpha_dropped) == int(banded.alpha_dropped) == 0
+        return
+    if plane == "instance":
+        torch.testing.assert_close(
+            tiling.to_image_banded(cfg, n, banded.gbuffers.instance),
+            pfg.to_image(cfg, whole.gbuffers.instance), rtol=0, atol=0)
+        return
+    if plane == "history":
+        planes = [(f"history.{name}", w, b) for name, w, b in
+                  zip(pfg.History._fields, whole.history, banded.history)]
+    else:
+        planes = [(plane, getattr(whole.gbuffers, plane),
+                   getattr(banded.gbuffers, plane))]
+    for name, w, b in planes:
+        assert b.shape == w.shape, name
+        diff = (pfg.to_image(cfg, w) - tiling.to_image_banded(cfg, n, b)).abs()
+        assert float(diff.mean()) < MEAN_TOL, name
+        assert float(diff.max()) < MAX_TOL, name
+
+
 def _compare(cfg, n, whole, banded, keep_rows=None):
-    keep = (slice(None) if keep_rows is None else keep_rows)
-    diff = (whole.image - banded.image).abs()[:, keep]
-    assert float(diff.mean()) < MEAN_TOL
-    assert float(diff.max()) < MAX_TOL
-    torch.testing.assert_close(
-        tiling.to_image_banded(cfg, n, banded.gbuffers.instance),
-        pfg.to_image(cfg, whole.gbuffers.instance), rtol=0, atol=0)
-    assert int(whole.alpha_dropped) == int(banded.alpha_dropped) == 0
+    compare_plane(cfg, n, whole, banded, "image", keep_rows)
+    compare_plane(cfg, n, whole, banded, "instance")
 
 
 def _glass_port():
@@ -231,23 +319,41 @@ def _castle_port():
 SCENES = {"glass": _glass_port, "castle": _castle_port}
 
 
-@pytest.fixture(scope="module", params=sorted(SCENES))
-def whole_frame(request):
-    dev, view = SCENES[request.param]()
-    dev.draw()  # settles the alpha boost
-    r, cfg, gp, bg = _frame_inputs(view)
-    hist = pfg.History.zeros(cfg.rt_height, cfg.rt_width, "cpu")
-    whole = pfg.render_frame(r._sb, gp, hist, r.bn_table, cfg, bg_planes=bg)
-    return request.param, r, cfg, gp, bg, hist, whole
+@pytest.fixture(scope="module")
+def whole_frames():
+    """scene name -> (r, cfg, gp, bg, hist, the whole frame's outputs),
+    each scene drawn once, on first use."""
+    drawn = {}
+
+    def whole(name):
+        if name not in drawn:
+            dev, view = SCENES[name]()
+            dev.draw()  # settles the alpha boost
+            r, cfg, gp, bg = _frame_inputs(view)
+            hist = pfg.History.zeros(cfg.rt_height, cfg.rt_width, "cpu")
+            drawn[name] = (r, cfg, gp, bg, hist, pfg.render_frame(
+                r._sb, gp, hist, r.bn_table, cfg, bg_planes=bg))
+        return drawn[name]
+
+    return whole
 
 
-@pytest.mark.parametrize("n", [2, 4, 8])
-def test_sharded_matches_whole(whole_frame, n):
-    _, r, cfg, gp, bg, hist, whole = whole_frame
+@pytest.fixture(scope="module",
+                params=[(name, n) for name in sorted(SCENES) for n in (2, 4, 8)],
+                ids=lambda p: f"{p[0]}-{p[1]}")
+def banded_frame(request, whole_frames):
+    """A scene's whole frame and the same inputs drawn in n bands: (cfg,
+    n, whole, banded)."""
+    name, n = request.param
+    r, cfg, gp, bg, hist, whole = whole_frames(name)
     banded = tiling.sharded_render(cfg, n)(r._sb, gp, hist, r.bn_table, bg)
-    assert banded.image.shape == whole.image.shape
-    assert banded.history.direct.shape == whole.history.direct.shape
-    _compare(cfg, n, whole, banded)
+    return cfg, n, whole, banded
+
+
+@pytest.mark.parametrize("plane", ["image", "instance", "flow", "depth",
+                                   "history"])
+def test_sharded_matches_whole(banded_frame, plane):
+    compare_plane(*banded_frame, plane)
 
 
 def test_banded_history_with_reprojection():
@@ -341,38 +447,35 @@ def band_edge_rows(cfg, n):
     return keep
 
 
-def compare_moving(cfg, n, whole, banded):
-    """_compare, and the flow, depth and history planes (every row: the
-    GI filter writes none of them) within the same bounds."""
-    _compare(cfg, n, whole, banded, keep_rows=band_edge_rows(cfg, n))
-    planes = [("flow", whole.gbuffers.flow, banded.gbuffers.flow),
-              ("depth", whole.gbuffers.depth, banded.gbuffers.depth)]
-    planes += [(f"history.{name}", w, b) for name, w, b in
-               zip(pfg.History._fields, whole.history, banded.history)]
-    for name, w, b in planes:
-        diff = (pfg.to_image(cfg, w) - tiling.to_image_banded(cfg, n, b)).abs()
-        assert float(diff.mean()) < MEAN_TOL, name
-        assert float(diff.max()) < MAX_TOL, name
-
-
-def draw_moving(fn, r, gps, bg, cfg, replicate=lambda h: h):
-    """fn's frames over the gps of moving_whole, the history carried
-    (through `replicate`) from zeros."""
+@pytest.fixture(scope="module", params=[2, 4])
+def moving_bands(request, moving_whole):
+    """moving_whole's frames drawn in n bands, the history carried from
+    zeros: (n, [the bands' outputs of each frame])."""
+    n = request.param
+    r, cfg, gps, bg, _ = moving_whole
+    fn = tiling.sharded_render(cfg, n)
     hist = pfg.History.zeros(cfg.rt_height, cfg.rt_width, "cpu")
     outs = []
     for gp in gps:
-        out = fn(r._sb, gp, replicate(hist), r.bn_table, bg)
+        out = fn(r._sb, gp, hist, r.bn_table, bg)
         hist = out.history
         outs.append(out)
-    return outs
+    return n, outs
 
 
-@pytest.mark.parametrize("n", [2, 4])
-def test_moving_camera_bands_match_whole(moving_whole, n):
-    r, cfg, gps, bg, wholes = moving_whole
-    outs = draw_moving(tiling.sharded_render(cfg, n), r, gps, bg, cfg)
+@pytest.mark.parametrize("plane", ["image", "flow", "depth", "history"])
+def test_moving_camera_bands_match_whole(moving_whole, moving_bands, plane):
+    """Each frame's plane against the whole frame's; "image" also holds
+    the instance plane, and with the denoiser leaves out the rows by a
+    band edge (band_edge_rows)."""
+    _, cfg, _, _, wholes = moving_whole
+    n, outs = moving_bands
     for f, (whole, banded) in enumerate(zip(wholes, outs)):
         try:
-            compare_moving(cfg, n, whole, banded)
+            if plane == "image":
+                _compare(cfg, n, whole, banded,
+                         keep_rows=band_edge_rows(cfg, n))
+            else:
+                compare_plane(cfg, n, whole, banded, plane)
         except AssertionError as exc:
             raise AssertionError(f"frame {f}: {exc}") from exc

@@ -1,7 +1,17 @@
 """The port's reference tracer (ops/tracer.py) against the JAX one on the
 random scenes of tests/test_tracer_pallas.py. Both are Moller-Trumbore
 in f32, so triangle ids and alpha slots must be equal and t/uv agree to
-float rounding (rtol 1e-5)."""
+float rounding (rtol 1e-5).
+
+And host-side guards of the kernel wrappers (ops/tracer_cuda.py): the
+launch counts from 8 threads at once lose nothing, kernel_library() is
+built once by 4 threads that ask at once, and a launch whose inputs are
+on two devices is refused before it reaches the card."""
+
+import sys
+import threading
+import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import pytest
@@ -11,6 +21,7 @@ import torch
 
 from rt64tpu.ops import tracer as jtr
 from rt64tpu_torch.ops import tracer as ptr
+from rt64tpu_torch.ops import tracer_cuda as tc
 import alpha_sweep_cases as sweep
 
 TOL = dict(rtol=1e-5, atol=1e-5)
@@ -181,3 +192,62 @@ def test_alpha_sweep_ties_across_chunks(k):
     _eq(np.broadcast_to(port_order, (tied.sum(), k)), p[1][tied])
     for a, b in ((j[0], p[0]), (j[3], p[3])):
         _close(np.asarray(a)[tied], b[tied])
+
+
+# ---------------------------------------------------------------------------
+# the kernel wrappers' host-side guards
+# ---------------------------------------------------------------------------
+
+
+def test_launch_counts_under_threads():
+    counts = tc.LaunchCounts()
+
+    def bump():
+        for _ in range(10_000):
+            counts.add("opaque_launches")
+        counts.add("shadow_mt_launches")
+
+    before = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(8) as pool:
+            for bumped in [pool.submit(bump) for _ in range(8)]:
+                bumped.result(timeout=60)
+    finally:
+        sys.setswitchinterval(before)
+    assert counts.opaque_launches == 8 * 10_000
+    assert counts.shadow_mt_launches == 8
+    assert counts.shadow_launches == counts.opaque_mt_launches == 0
+    assert set(vars(counts)) == set(tc.LaunchCounts.NAMES)
+
+
+def test_kernel_library_built_once_across_threads(monkeypatch):
+    builds = []
+
+    def build():
+        builds.append(threading.get_ident())
+        time.sleep(0.2)  # a slow build: the others arrive meanwhile
+        return object()
+
+    monkeypatch.setattr(tc, "_build_library", build)
+    monkeypatch.setattr(tc, "_library", None)
+    before = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        with ThreadPoolExecutor(4) as pool:
+            calls = [pool.submit(tc.kernel_library) for _ in range(4)]
+            got = [c.result(timeout=60) for c in calls]
+    finally:
+        sys.setswitchinterval(before)
+    assert len(builds) == 1
+    assert len(got) == 4 and all(g is got[0] for g in got)
+
+
+def test_launch_inputs_on_two_devices_raise():
+    rays8 = torch.zeros(8, 512)
+    p = torch.zeros(1, dtype=torch.int32)
+    with pytest.raises(ValueError, match="visits on meta, rays8 on cpu"):
+        tc.trace_opaque_blocks(rays8, torch.zeros(2, tc.C_ROWS, tc.K_CS),
+                               torch.zeros(1, 1, dtype=torch.int32,
+                                           device="meta"), p,
+                               torch.zeros(1, 1), True)
