@@ -25,9 +25,14 @@ result line):
      in slices) on every sweep of that frame: triangle ids exactly equal,
      t, u, v and bias bit-equal; per launch kernel ms (median of 25),
      plain ms, and the bound from its live rays and list entries;
+  4c. the hit shader's kernel against its plain version (run on the
+     card) on every shade_hits call of that frame: instance and rows_t
+     equal, every float plane bit-equal; per call the width and live
+     lanes, kernel ms (median of 25), plain ms, the bytes bound, and one
+     launch a call (hit_shade_launches);
   5. main path: 10 castle frames through Device.draw(), with the
-     launch counters set to 0 just before and read just after (K1, K2
-     and the alpha sweep at least once a frame);
+     launch counters set to 0 just before and read just after (K1, K2,
+     the alpha sweep and the hit shader at least once a frame);
   6. sample scene 320x240 rendered on the card and on the CPU, SSIM;
   6b. K1 and K2 the same way on the regrouped bounce launches of a
      castle GI 1280x720 frame (the ray mix of bench config 3: incoherent
@@ -125,8 +130,8 @@ result line):
      native 3840x2160 frame drawn in 4 bands of 540 rows (6 if 4 do not
      fit, and the failed allocation is printed), 8 frames with the
      history concatenated across the bands; SSIM, peaks, band ms; and
-     4b's check on every alpha sweep of the last DLSS draw (1920x1080,
-     the 4K cell's frame);
+     4b's and 4c's checks on every alpha sweep and every shade_hits
+     call of the last DLSS draw (1920x1080, the 4K cell's frame);
  18. inspector: castle 640x480 with one light just ahead of the camera
      and one far behind the castle: after "gizmos on" the rings are
      drawn, pixels in the open take the ring's colour and occluded ones
@@ -209,6 +214,15 @@ SWEEP_RAY_BYTES, SWEEP_SLOT_BYTES, SWEEP_ENTRY_BYTES = 32, 24, 49
 # planes at the 4K frame's 4,147,200 shadow lanes would not fit beside
 # the frame. A row's result does not depend on the other rows.
 SWEEP_TWIN_SLICE = 1 << 18
+# The hit shader (csrc/hit_shade.cu) is bounded by bytes. A floor, each
+# byte once: a lane's inputs (its id, u, v, noise and direction; with the
+# mip level its t and two differentials) and its outputs (rows_t, color,
+# normal, specular, flow, instance; the shadow variant writes color and
+# one zero plane), and the row of each distinct triangle hit. The quad
+# fetches are left out.
+HIT_ROW_BYTES = 122 * 4
+HIT_LANE_IN_BYTES, HIT_MIP_IN_BYTES = 4 + 12 + 12, 28
+HIT_LANE_OUT_BYTES, HIT_SHADOW_OUT_BYTES = 122 * 4 + 16 + 36 + 4, 122 * 4 + 16 + 12 + 4
 CASTLE_W, CASTLE_H = 640, 480
 MAIN_FRAMES = 10
 GI_W, GI_H = 1280, 720
@@ -280,7 +294,7 @@ def bound_ms(n_bytes, n_flops):
 
 WRAPPERS = ("trace_opaque_blocks", "trace_shadow_blocks",
             "trace_opaque_mt_blocks", "trace_shadow_mt_blocks",
-            "prepare_opaque", "prepare_shadow", "alpha_sweep")
+            "prepare_opaque", "prepare_shadow", "alpha_sweep", "hit_shade")
 
 
 def capture_launches(draw):
@@ -565,6 +579,69 @@ def alpha_sweep_phase(tag, calls):
                plain_ms=sum(r["plain_ms"] for r in rows),
                bound_ms=sum(r["bound_ms"] for r in rows),
                bound_by=dearest["bound_by"])
+    emit(out)
+    return out
+
+
+def hit_shade_phase(tag, calls):
+    """hit_shade_kernel against the plain version of shade_hits, run on
+    the card, on every call one draw made (recorded with the inputs the
+    frame gave it): instance and rows_t equal, color, normal, specular and
+    flow bit-equal (NaN where both are NaN), one launch a call. Each call
+    timed (the kernel: median of 25, CUDA events; the plain version once)
+    and bounded by its bytes. One line a call; returns the draw's row,
+    with the sums over its calls as ms, plain_ms and bound_ms."""
+    import torch
+    from rt64tpu_torch.ops import shading
+    from rt64tpu_torch.ops import tracer_cuda as tc
+
+    calls = [c for c in calls if c[0][3].shape[0] > 0]
+    check(calls, f"{tag}: the draw shaded no hit")
+    names = ("color", "normal", "specular", "flow", "instance", "rows_t")
+    rows = []
+    for i, (args, kw) in enumerate(calls):
+        sb, tri_rows, ray_dir, tri = args[:4]
+        shadow = kw.get("shadow_variant", args[7] if len(args) > 7 else False)
+        mip_args = kw.get("mip_args", args[8] if len(args) > 8 else None)
+        mips = mip_args is not None and sb.features.has_mips and not shadow
+        before = tc.launch_counts.hit_shade_launches
+        got = tc.hit_shade(*args, **kw)
+        launches = tc.launch_counts.hit_shade_launches - before
+        want, plain_ms = timed(lambda: shading.shade_hits_plain(*args, **kw))
+        equal = {}
+        for name, g, w in zip(names, got, want):
+            same = g == w
+            if g.dtype == torch.float32:
+                same = (g.view(torch.int32) == w.view(torch.int32)) | (
+                    torch.isnan(g) & torch.isnan(w))
+            equal[name] = bool(same.all())
+        del got, want
+        ms = time_ms(lambda: tc.hit_shade(*args, **kw), reps=25)
+        m = tri.shape[0]
+        live = int((tri >= 0).sum())
+        distinct = int(torch.unique(tri[tri >= 0]).numel())
+        n_bytes = (m * (HIT_LANE_IN_BYTES + tri.element_size() - 4
+                        + (HIT_MIP_IN_BYTES if mips else 0)
+                        + (HIT_SHADOW_OUT_BYTES if shadow else HIT_LANE_OUT_BYTES))
+                   + distinct * HIT_ROW_BYTES)
+        bms, by = bound_ms(n_bytes, 0)
+        row = dict(phase=tag, call=i, lanes=m, live_lanes=live,
+                   distinct_triangles=distinct, shadow_variant=bool(shadow),
+                   mips=mips, features=sb.features._asdict(), bit_equal=equal,
+                   hit_shade_launches=launches, bytes=n_bytes, ms=ms,
+                   plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   max_abs_err=0.0 if all(equal.values()) else None)
+        emit(row)
+        check(all(equal.values()),
+              f"{tag} call {i}: the kernel differs from the plain version: {equal}")
+        check(launches == 1, f"{tag} call {i}: {launches} launches, not 1")
+        rows.append(row)
+    out = dict(phase=f"{tag}_draw", calls=len(rows),
+               lanes=[r["lanes"] for r in rows],
+               live_lanes=[r["live_lanes"] for r in rows], max_abs_err=0.0,
+               ms=sum(r["ms"] for r in rows),
+               plain_ms=sum(r["plain_ms"] for r in rows),
+               bound_ms=sum(r["bound_ms"] for r in rows), bound_by="bytes")
     emit(out)
     return out
 
@@ -952,6 +1029,9 @@ def phase_main_path():
     sweeps = counts["alpha_sweep_launches"]
     check(sweeps >= MAIN_FRAMES,
           f"the alpha sweep launched {sweeps} times in {MAIN_FRAMES} frames")
+    shades = counts["hit_shade_launches"]
+    check(shades >= MAIN_FRAMES,
+          f"the hit shader launched {shades} times in {MAIN_FRAMES} frames")
     check(counts["opaque_mt_launches"] == 0 and counts["shadow_mt_launches"] == 0,
           "the castle frame (below the size switch) launched K3 or K4")
     return row
@@ -1969,7 +2049,7 @@ def phase_bench5_fidelity():
     alpha boost 1), SSIM of the uint8 images. The alpha sweeps of the
     last DLSS draw, and the K1 and K2 launches of the first frame's first
     band, are held against their plain twins: (row, {"k1": row,
-    "k2": row}, the sweeps' row)."""
+    "k2": row}, the sweeps' row, the hit shader's row)."""
     import torch
     from rt64tpu_torch import bench
     from rt64tpu_torch.utils.ssim import ssim
@@ -1988,6 +2068,7 @@ def phase_bench5_fidelity():
     cfg = view._renderer._last_cfg
     dlss_render = (cfg.rt_width, cfg.rt_height)
     sweep = alpha_sweep_phase("alpha_sweep_bench5", seen["alpha_sweep"])
+    shade = hit_shade_phase("hit_shade_bench5", seen["hit_shade"])
     del dev, view, cfg, seen
     torch.cuda.empty_cache()
 
@@ -2022,7 +2103,7 @@ def phase_bench5_fidelity():
     check(row["prod_max"] > 0 and row["native_max"] > 0,
           "a bench5 fidelity frame is black")
     torch.cuda.empty_cache()
-    return row, kernels_on_largest("native_band", seen), sweep
+    return row, kernels_on_largest("native_band", seen), sweep, shade
 
 
 def gizmo_ring(view, light, w, h):
@@ -2467,8 +2548,10 @@ def run(args):
           "the castle frame launched no K1 or K2")
     k1 = phase_k1("k1", seen["trace_opaque_blocks"][-1])
     k2 = phase_k2("k2", seen["trace_shadow_blocks"][-1])
-    # 4b. the alpha sweep's kernel on every sweep of that frame
+    # 4b. the alpha sweep's kernel on every sweep of that frame; 4c. the
+    # hit shader's on every shade_hits call
     sweep = alpha_sweep_phase("alpha_sweep", seen["alpha_sweep"])
+    shade = hit_shade_phase("hit_shade", seen["hit_shade"])
     del dev, view, seen
     torch.cuda.empty_cache()
 
@@ -2536,7 +2619,7 @@ def run(args):
     streamed, k_streamed = phase_streamed()
     phase_midframe()
     _, banded_counts = phase_banded_castle()
-    _, k_native, sweep["bench5"] = phase_bench5_fidelity()
+    _, k_native, sweep["bench5"], shade["bench5"] = phase_bench5_fidelity()
     phase_inspector()
 
     # 19. the C ABI: both sample hosts on the card; 20. DDS textures;
@@ -2569,7 +2652,8 @@ def run(args):
     # The alpha sweep's kernel has no bounce launch: its row's numbers
     # are sums over the sweeps of one castle frame (4b), and over those of
     # one settled bench config 5 draw as bench5_<key>, with the launches
-    # of each draw; it carries its launches in the same paths as K1.
+    # of each draw; it carries its launches in the same paths as K1. So
+    # does the hit shader's kernel, over the shade_hits calls (4c).
     kernel = lambda name, src, line, launches, row, refl_launches=None, **more: dict(
         name=name, route="cuda", source=f"rt64tpu_torch/csrc/{src}",
         replaces=f"rt64tpu/ops/tracer_pallas.py:{line}", launches=launches,
@@ -2627,6 +2711,24 @@ def run(args):
              abi_launches={h: c["alpha_sweep_launches"]
                            for h, c in abi["launches"].items()},
              train_launches=train["alpha_sweep_launches"]),
+        dict(name="hit_shade_kernel<SHADOW, TEXEL1, NMAP, SMAP, MIPS>",
+             route="cuda", source="rt64tpu_torch/csrc/hit_shade.cu",
+             replaces=None, launches=main["hit_shade_launches"],
+             **{k: shade[k] for k in measured}, library_ms=None,
+             calls_per_draw=shade["calls"],
+             **{f"bench5_{k}": shade["bench5"][k] for k in measured},
+             bench5_calls_per_draw=shade["bench5"]["calls"],
+             reflection_launches=refl["hit_shade_launches"],
+             raster_launches=raster["hit_shade_launches"],
+             upscaled_launches={f"bench{n}": row["hit_shade_launches"]
+                                for n, row in upscaled.items()},
+             streamed_launches={m: row["hit_shade_launches"]
+                                for m, row in streamed.items()},
+             banded_launches=band_launches(banded_counts,
+                                           "hit_shade_launches"),
+             abi_launches={h: c["hit_shade_launches"]
+                           for h, c in abi["launches"].items()},
+             train_launches=train["hit_shade_launches"]),
     ]})
     result_line()
     return 0

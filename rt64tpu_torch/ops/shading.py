@@ -6,6 +6,11 @@ material/alpha rules, perturbs normals, and records motion flow. Here
 the same math runs as ONE pass over every collected hit: one row gather
 per hit (pipeline/rows.py) followed by planar tensor ops. The shadow
 variant implements the shadow any-hit rules (rt64_shader.cpp:594-674).
+
+shade_hits chooses by device: CPU tensors take the plain version,
+shade_hits_plain; CUDA tensors launch the hand-written kernel,
+tracer_cuda.hit_shade (csrc/hit_shade.cu), one launch a call where the
+plain version issues ~500-830 ops, or raise. Nothing falls back.
 """
 
 from __future__ import annotations
@@ -16,9 +21,11 @@ import torch
 
 from rt64tpu_torch.ops import raydiff
 from rt64tpu_torch.ops import texture as tex_ops
+from rt64tpu_torch.ops import tracer_cuda
 from rt64tpu_torch.ops import vecmath as vm
 from rt64tpu_torch.ops.combiner import combiner_eval_planar
 from rt64tpu_torch.pipeline import rows as R
+from rt64tpu_torch.utils import profiling
 
 
 class HitShade(NamedTuple):
@@ -44,6 +51,21 @@ def shade_hits(
     # differentials for ray-diff mip LOD on the diffuse fetch; consulted
     # only when the scene has mip-enabled instances (features.has_mips)
 ) -> HitShade:
+    """Shade every hit lane: shade_hits_plain on CPU tensors, the
+    hit_shade_kernel (tracer_cuda.hit_shade) on a CUDA device."""
+    if tri.device.type == "cpu":
+        profiling.count_launch("hit_shade_launches")
+        return shade_hits_plain(sb, tri_rows, ray_dir, tri, bary_u, bary_v,
+                                noise_rand, shadow_variant, mip_args)
+    planes = tracer_cuda.hit_shade(sb, tri_rows, ray_dir, tri, bary_u, bary_v,
+                                   noise_rand, shadow_variant, mip_args)
+    return HitShade(*planes, tri=tri)
+
+
+def shade_hits_plain(sb, tri_rows, ray_dir, tri, bary_u, bary_v, noise_rand,
+                     shadow_variant: bool = False, mip_args=None) -> HitShade:
+    """The plain version of shade_hits: planar torch ops, on any device
+    (the kernel's yardstick on the card)."""
     valid = tri >= 0
     tri_s = torch.clamp(tri, min=0).to(torch.int64)
     gt = tri_rows[tri_s].T  # (TROW, M) — THE gather

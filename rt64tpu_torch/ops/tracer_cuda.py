@@ -88,7 +88,9 @@ from typing import NamedTuple
 import torch
 
 from rt64tpu_torch import limits
+from rt64tpu_torch.ops import texture as tex_ops
 from rt64tpu_torch.ops import tracer
+from rt64tpu_torch.pipeline import rows as R
 from rt64tpu_torch.utils import profiling
 
 _BIG = tracer._BIG
@@ -153,7 +155,7 @@ class LaunchCounts:
     counts as well. The lock is a class attribute, so vars() of the
     instance holds the counts alone."""
 
-    NAMES = profiling.LAUNCHES  # K1, K2, K3, K4, alpha_sweep_kernel
+    NAMES = profiling.LAUNCHES  # K1-K4, alpha_sweep_kernel, hit_shade_kernel
     _lock = threading.Lock()
 
     def __init__(self):
@@ -497,6 +499,14 @@ C_SIGNATURES = {
     # alpha_idx, a_cap, k, cull, t, tri, uv, bias, stream
     "rt64_alpha_sweep": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I,
                          _I, _I, _P, _P, _P, _P, _P],
+    # tri_rows, n_tri, tri, tri_is64, tri_stride, u, u_stride, v, v_stride,
+    # noise, noise_stride, dir, dir_row, dir_lane, t_hit, t_stride, ddx,
+    # ddx_row, ddx_lane, ddy, ddy_row, ddy_lane, pool, pool_quads,
+    # pool_wide, m, variant, color, normal, specular, flow, instance,
+    # rows_t, stream
+    "rt64_hit_shade": [_P, _I, _P, _I, _I, _P, _I, _P, _I, _P, _I, _P, _I, _I,
+                       _P, _I, _P, _I, _I, _P, _I, _I, _P, _I, _I, _I, _I, _P,
+                       _P, _P, _P, _P, _P, _P],
 }
 
 
@@ -1275,6 +1285,122 @@ def alpha_sweep(origins, dirs, t_min, t_max, scene: tracer.TraceScene,
     _raise_on(err, "alpha_sweep_kernel")
     launch_counts.add("alpha_sweep_launches")
     return t_out, tri, uv, bias
+
+
+# ---------------------------------------------------------------------------
+# The hit shader
+# ---------------------------------------------------------------------------
+
+# Variant bits of rt64_hit_shade (csrc/hit_shade.cu): the kernel's
+# template flags, then the layouts of the mip level's planes.
+HIT_SHADOW, HIT_TEXEL1, HIT_NORMAL_MAPS, HIT_SPECULAR_MAPS, HIT_MIPS = (
+    1, 2, 4, 8, 16)
+HIT_DIR_LANE_MAJOR, HIT_DDX_LANE_MAJOR, HIT_DDY_LANE_MAJOR = 32, 64, 128
+_INT_MAX = 2**31 - 1
+
+
+def _lane_major(plane) -> bool:
+    """Whether ATen lays out what it computes from a (3, M) plane
+    lane-major (strides (1, 3)), and so sums the plane's dot products in
+    another order (csrc/hit_shade.cu, dot_lane_major)."""
+    return plane.shape[1] > 1 and plane.stride(0) < plane.stride(1)
+
+
+def hit_shade(sb, tri_rows, ray_dir, tri, bary_u, bary_v, noise_rand,
+              shadow_variant: bool = False, mip_args=None):
+    """shading.shade_hits on a CUDA device, in one launch of
+    hit_shade_kernel (csrc/hit_shade.cu): (color (4, M), normal (3, M),
+    specular (3, M), flow (3, M), instance (M,) int32, rows_t (TROW, M)),
+    the planes of shading.HitShade but its tri. The shadow variant's
+    normal, specular and flow are one zero plane, as in the plain version.
+
+    The kernel follows shading.shade_hits_plain operation for operation
+    in float32, every product and sum rounded on its own, and sums each
+    three-term dot product in the order ATen's reduction takes for the
+    plane's layout (the variant's lane-major bits), so the planes equal
+    the plain version's on the card bit for bit
+    (tests/test_torch_hit_shade.py). The per-lane inputs may be strided
+    views; tri is int32 or int64. Raises on a dtype, shape or device the
+    kernel does not take, CPU tensors included."""
+    m = tri.shape[0] if tri.dim() == 1 else -1
+    feat = sb.features
+    mips = mip_args is not None and feat.has_mips and not shadow_variant
+    pool = sb.quad_pool
+    f32 = (torch.float32,)
+    lanes = [("ray_dir", ray_dir, f32, (3, m)),
+             ("tri", tri, (torch.int32, torch.int64), (m,)),
+             ("bary_u", bary_u, f32, (m,)), ("bary_v", bary_v, f32, (m,)),
+             ("noise_rand", noise_rand, f32, (m,))]
+    if mips:
+        t_hit, d_ddx, d_ddy = mip_args
+        lanes += [("t", t_hit, f32, (m,)), ("d_ddx", d_ddx, f32, (3, m)),
+                  ("d_ddy", d_ddy, f32, (3, m))]
+    if m < 0:
+        raise ValueError(f"tri must be a (M,) tensor, got {tuple(tri.shape)}")
+    for name, t, dtypes, shape in lanes:
+        if t.dtype not in dtypes or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be a {shape} tensor of {dtypes}, "
+                             f"got {tuple(t.shape)} {t.dtype}")
+        if any(st > _INT_MAX for st in t.stride()):
+            raise ValueError(f"{name}'s strides {t.stride()} pass 32 bits")
+    wide = pool.dim() == 2 and pool.shape[1] == 4 * tex_ops.QPR
+    whole = [("tri_rows", tri_rows, torch.float32,
+              tri_rows.dim() == 2 and tri_rows.shape[0] >= 1
+              and tri_rows.shape[1] == R.TROW, f"(T >= 1, {R.TROW})"),
+             ("quad_pool", pool, torch.int64,
+              wide or (pool.dim() == 2 and pool.shape[1] == 4),
+              f"(P / {tex_ops.QPR}, {4 * tex_ops.QPR}) or (P, 4)")]
+    for name, t, dtype, shaped, want in whole:
+        if t.dtype != dtype or not shaped or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous {want} {dtype} "
+                             f"tensor, got {tuple(t.shape)} {t.dtype}")
+    quads = tex_ops.pool_quad_count(pool)
+    if not 1 <= quads <= _INT_MAX or tri_rows.shape[0] > _INT_MAX:
+        raise ValueError(f"quad_pool holds {quads} quads, tri_rows "
+                         f"{tri_rows.shape[0]} rows: 1 to 2**31 - 1 each")
+    dev = tri.device
+    for name, t, *_ in lanes + whole:
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, tri on {dev}")
+    if dev.type != "cuda":
+        raise ValueError(f"hit_shade launches on a CUDA device, not {dev}")
+
+    plane = lambda rows: torch.empty((rows, m), dtype=torch.float32, device=dev)
+    color, normal, rows_t = plane(4), plane(3), plane(R.TROW)
+    specular, flow = (normal, normal) if shadow_variant else (plane(3), plane(3))
+    instance = torch.empty((m,), dtype=torch.int32, device=dev)
+    if m == 0:
+        return color, normal, specular, flow, instance, rows_t
+    variant = ((HIT_SHADOW if shadow_variant else 0)
+               | (HIT_TEXEL1 if feat.has_texel1 else 0)
+               | (HIT_NORMAL_MAPS if feat.has_normal_maps else 0)
+               | (HIT_SPECULAR_MAPS if feat.has_specular_maps else 0)
+               | (HIT_MIPS if mips else 0)
+               | (HIT_DIR_LANE_MAJOR if _lane_major(ray_dir) else 0))
+    if mips:
+        # torch.zeros_like keeps only a dense plane's layout (raydiff.propagate).
+        dense = lambda d: d.shape[1] > 1 and d.stride() == (1, 3)
+        variant |= ((HIT_DDX_LANE_MAJOR if dense(d_ddx) else 0)
+                    | (HIT_DDY_LANE_MAJOR if dense(d_ddy) else 0))
+    none = (None, 0, 0)
+    planar = lambda t: (t.data_ptr(), t.stride(0), t.stride(1))
+    t_args = (t_hit.data_ptr(), t_hit.stride(0)) if mips else (None, 0)
+    lib = kernel_library().lib
+    with torch.cuda.device(dev):  # see _launch_opaque
+        err = lib.rt64_hit_shade(
+            tri_rows.data_ptr(), tri_rows.shape[0], tri.data_ptr(),
+            int(tri.dtype == torch.int64), tri.stride(0),
+            bary_u.data_ptr(), bary_u.stride(0),
+            bary_v.data_ptr(), bary_v.stride(0),
+            noise_rand.data_ptr(), noise_rand.stride(0), *planar(ray_dir),
+            *t_args, *(planar(d_ddx) if mips else none),
+            *(planar(d_ddy) if mips else none), pool.data_ptr(), quads,
+            int(wide), m, variant, color.data_ptr(), normal.data_ptr(),
+            specular.data_ptr(), flow.data_ptr(), instance.data_ptr(),
+            rows_t.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "hit_shade_kernel")
+    launch_counts.add("hit_shade_launches")
+    return color, normal, specular, flow, instance, rows_t
 
 
 # ---------------------------------------------------------------------------

@@ -52,7 +52,8 @@ LAUNCHES = ("opaque_launches",  # K1
             "shadow_launches",  # K2
             "opaque_mt_launches",  # K3
             "shadow_mt_launches",  # K4
-            "alpha_sweep_launches")  # alpha_sweep_kernel
+            "alpha_sweep_launches",  # alpha_sweep_kernel
+            "hit_shade_launches")  # hit_shade_kernel
 # The reflection bounces' counters (count_reflection).
 REFLECTION = ("reflection_live_rays",  # live mirror rays, summed over bounces
               "reflection_traced_lanes",  # lanes the issued bounces traced

@@ -586,7 +586,8 @@ def test_frame_stats_equal_launch_counts(card, monkeypatch, resident):
             else ("opaque_mt_launches", "shadow_mt_launches"))
     assert all(delta[k] > 0 for k in used), delta
     assert sum(delta.values()) == sum(delta[k] for k in used) + delta[
-        "alpha_sweep_launches"]
+        "alpha_sweep_launches"] + delta["hit_shade_launches"]
+    assert delta["hit_shade_launches"] > 0
 
 
 def _raster_inputs(seed, n=12, width=96, height=64):

@@ -6,7 +6,8 @@ of the size switch (tracer_cuda.clusters_resident; RESIDENT_TABLE_BYTES
 
 - A profiled draw counts one launch a call of each wrapper's plain
   twin (the launch a card would make): K3/K4 and no K1/K2 past the
-  switch, K1/K2 and no K3/K4 below it, the alpha sweep on both sides.
+  switch, K1/K2 and no K3/K4 below it, the alpha sweep and the hit
+  shader on both sides.
   launch_counts stands still (a CPU tensor launches no kernel; on the
   card the record equals its deltas: tests/test_torch_cuda.py).
 - Nothing is counted while no profiler records.
@@ -23,6 +24,7 @@ import pytest
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+from rt64tpu_torch.ops import shading
 from rt64tpu_torch.ops import tracer as ptr
 from rt64tpu_torch.ops import tracer_cuda as tc
 from rt64tpu_torch.parallel import tiling
@@ -32,7 +34,8 @@ TWINS = {"opaque_launches": (tc, "trace_opaque_plain"),
          "shadow_launches": (tc, "trace_shadow_plain"),
          "opaque_mt_launches": (tc, "trace_opaque_mt_plain"),
          "shadow_mt_launches": (tc, "trace_shadow_mt_plain"),
-         "alpha_sweep_launches": (ptr, "_alpha_sweep_plain")}
+         "alpha_sweep_launches": (ptr, "_alpha_sweep_plain"),
+         "hit_shade_launches": (shading, "shade_hits_plain")}
 KERNELS = {False: ("opaque_mt_launches", "shadow_mt_launches"),
            True: ("opaque_launches", "shadow_launches")}
 
@@ -97,7 +100,7 @@ def test_a_profiled_draw_counts_each_twin_call(monkeypatch, resident):
     used, unused = KERNELS[resident], KERNELS[not resident]
     assert all(st[k] > 0 for k in used), st
     assert all(st[k] == 0 for k in unused), st
-    assert st["alpha_sweep_launches"] > 0
+    assert st["alpha_sweep_launches"] > 0 and st["hit_shade_launches"] > 0
     # Primary, GI bounce, two reflection bounces; DI and GI shadows.
     assert st[used[0]] >= 4 and st[used[1]] >= 2
     assert vars(tc.launch_counts) == before
