@@ -1,7 +1,8 @@
 """The system under test, driven as a game drives it: the scene pushed
 through rt64tpu_torch's public object model, then per frame the walk's
 pushes (every instance re-set with its previous transform kept, the
-character's mesh re-uploaded, the camera re-pushed), Device.draw() and
+character's mesh re-uploaded, the lights re-set where the mix re-sends
+them, the camera re-pushed), Device.draw() and
 the presented frame read back through View.framebuffer().
 
 After the window, `outputs` copies to the host what the check compares:
@@ -52,21 +53,27 @@ class Program:
         return self.view._renderer
 
 
+def scene_limits(data: sc.SceneData, cfg: dict):
+    """The Device's capacity buckets: the configuration's, grown to hold
+    the scene's vertices, triangles, instances and lights."""
+    from rt64tpu_torch.limits import SceneLimits
+
+    verts = sum(data.meshes[i.mesh].positions.shape[0] for i in data.instances)
+    return SceneLimits(
+        max_vertices=1 << 15, max_triangles=int(cfg["scene"]["max_triangles"]),
+        max_instances=128, max_textures=16, texel_pool=1 << 18,
+        alpha_triangles=256,
+    ).grown_for(vertices=verts, triangles=data.triangles(),
+                instances=len(data.instances), lights=len(data.lights))
+
+
 def build(data: sc.SceneData, cfg: dict, device=None) -> Program:
     """The scene pushed into a new Device. cfg: the configuration."""
     import rt64tpu_torch as rt
     from rt64tpu_torch import descriptors as d
-    from rt64tpu_torch.limits import SceneLimits
     from rt64tpu_torch.utils.testscenes import shader_id
 
-    tris = data.triangles()
-    verts = sum(data.meshes[i.mesh].positions.shape[0] for i in data.instances)
-    limits = SceneLimits(
-        max_vertices=1 << 15, max_triangles=int(cfg["scene"]["max_triangles"]),
-        max_instances=128, max_textures=16, texel_pool=1 << 18,
-        alpha_triangles=256,
-    ).grown_for(vertices=verts, triangles=tris)
-    dev = rt.Device(limits, device=device)
+    dev = rt.Device(scene_limits(data, cfg), device=device)
     scene = rt.Scene(dev)
     view = rt.View(scene, width=cfg["display"][0], height=cfg["display"][1])
     tex = {name: rt.Texture(dev, d.TextureDesc(
@@ -126,7 +133,8 @@ def _desc(d, inst: sc.InstanceData, meshes, tex, shaders, transform,
 
 def push(prog: Program, state, camera: dict):
     """One frame's pushes: every instance re-set (its previous transform
-    kept), the character re-uploaded, the camera re-pushed."""
+    kept), the character re-uploaded, the lights re-set where the mix
+    re-sends them, the camera re-pushed."""
     from rt64tpu_torch import descriptors as d
 
     raw = _interleave(state.character)
@@ -136,6 +144,8 @@ def push(prog: Program, state, camera: dict):
                                    state.transforms, state.previous):
         obj.set_description(_desc(d, inst, prog.meshes, prog.textures,
                                   prog.shaders, tf, prev))
+    if state.resend_lights:
+        prog.scene.set_lights([d.Light(**light) for light in state.lights])
     prog.view.set_perspective(state.view_matrix,
                               math.radians(camera["fov_deg"]),
                               camera["near"], camera["far"], True)

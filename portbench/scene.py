@@ -13,6 +13,13 @@ traffic re-poses every frame. The seed moves the textures' noise; the
 terrain, the billboards' places and the counts of triangles, instances
 and textures are the same for every seed (the traffic draws the rest
 from it).
+
+A configuration may add a field of point lights after the two
+(`point_lights`, see point_light_field) and give the instances of a mesh
+a light group mask (`light_masks`: mesh name -> RT64's
+light_group_mask_bits), so that a light lights only the materials whose
+mask shares a bit with its group bits. Their places and draws come from
+a fixed seed too.
 """
 
 from __future__ import annotations
@@ -41,6 +48,9 @@ LEAF_TEXELS = 64
 # same for every run. They set how many alpha-tested hits a view holds,
 # and so the work and the memory of the alpha path.
 TERRAIN_SHAPE, FOLIAGE_PLACES = 3, 11
+# The seed of the point lights' places and draws: the same for every run,
+# so that every seed's views light the same places.
+POINT_LIGHT_PLACES = 17
 # The alpha test of a texture-edge combiner keeps a hit whose texel
 # alpha is above this (the port's shading.py; rt64_shader.cpp).
 TEXTURE_EDGE_ALPHA = 0.3
@@ -114,14 +124,21 @@ class SceneData:
         return sum(self.meshes[i.mesh].indices.shape[0] for i in self.instances)
 
 
-def _terrain(n: int, rng) -> MeshData:
+def terrain_height(x, z):
+    """The terrain's height field at world x, z (arrays or floats): the
+    heights its grid's vertices take."""
+    rng = np.random.default_rng(TERRAIN_SHAPE)
     freq = rng.normal(0, 1, (4, 2))
     phase = rng.uniform(0, np.pi, 4)
-    xs = np.linspace(-TERRAIN_EXTENT, TERRAIN_EXTENT, n)
-    x, z = np.meshgrid(xs, xs)  # z rows, x columns
     h = sum(1.1 * np.sin(0.06 * (x * freq[i, 0] + z * freq[i, 1]) + phase[i])
             for i in range(4))
-    h = h * np.clip((np.hypot(x, z) - 12.0) / 30.0, 0.0, 1.0)
+    return h * np.clip((np.hypot(x, z) - 12.0) / 30.0, 0.0, 1.0)
+
+
+def _terrain(n: int) -> MeshData:
+    xs = np.linspace(-TERRAIN_EXTENT, TERRAIN_EXTENT, n)
+    x, z = np.meshgrid(xs, xs)  # z rows, x columns
+    h = terrain_height(x, z)
     pos = np.stack([x, h, z], -1).reshape(-1, 3)
     nrm = np.tile(np.array([0.0, 1.0, 0.0]), (n * n, 1))
     uv = np.stack([x / 12.0, z / 12.0], -1).reshape(-1, 2)
@@ -270,15 +287,48 @@ def rotation_y(angle: float) -> np.ndarray:
                     np.float32)
 
 
+def _in_castle(x: float, z: float) -> bool:
+    """Whether x, z lies within a unit of a castle box's footprint."""
+    return any(abs(x - c[0]) < s[0] / 2 + 1.0 and abs(z - c[2]) < s[2] / 2 + 1.0
+               for c, s in CASTLE_BOXES)
+
+
+def point_light_field(cfg: dict) -> list:
+    """The lights of a configuration's `point_lights`: `count` point
+    lights placed uniformly in `region` ({"x": [lo, hi], "z": [lo, hi]})
+    outside the castle's walls, each `height` (a range) above the
+    terrain, with an `attenuation_radius` drawn from its range, the
+    given `point_radius` and `attenuation_exponent`, a colour drawn from
+    `colors` and group bits cycled through `group_bits`. No light
+    flickers (see build_scene)."""
+    rng = np.random.default_rng(POINT_LIGHT_PLACES)
+    (x0, x1), (z0, z1) = cfg["region"]["x"], cfg["region"]["z"]
+    colors, groups = cfg["colors"], cfg["group_bits"]
+    out = []
+    while len(out) < int(cfg["count"]):
+        x, z = float(rng.uniform(x0, x1)), float(rng.uniform(z0, z1))
+        if _in_castle(x, z):
+            continue
+        y = float(terrain_height(x, z)) + float(rng.uniform(*cfg["height"]))
+        color = colors[int(rng.integers(len(colors)))]
+        out.append(dict(
+            position=(x, y, z), diffuse_color=tuple(float(c) for c in color),
+            attenuation_radius=float(rng.uniform(*cfg["attenuation_radius"])),
+            point_radius=float(cfg["point_radius"]),
+            attenuation_exponent=float(cfg["attenuation_exponent"]),
+            flicker_intensity=0.0, group_bits=int(groups[len(out) % len(groups)])))
+    return out
+
+
 def build_scene(scene_cfg: dict, character: dict, seed: int) -> SceneData:
     """The castle grounds of one seed. scene_cfg: the configuration's
-    "scene" (terrain_n, foliage); character: the traffic's "character"
-    (rings, segments, height, radius): its first pose, which the walk
-    replaces every frame."""
+    "scene" (terrain_n, foliage; optionally point_lights and
+    light_masks); character: the traffic's "character" (rings, segments,
+    height, radius): its first pose, which the walk replaces every
+    frame."""
     rng = np.random.default_rng([seed, 0x5CE7E])
     meshes = {
-        "terrain": _terrain(int(scene_cfg["terrain_n"]),
-                            np.random.default_rng(TERRAIN_SHAPE)),
+        "terrain": _terrain(int(scene_cfg["terrain_n"])),
         "castle": _boxes(),
         "moat": _moat(),
         "billboard": _billboard(),
@@ -319,6 +369,12 @@ def build_scene(scene_cfg: dict, character: dict, seed: int) -> SceneData:
              attenuation_radius=40.0, point_radius=0.5,
              attenuation_exponent=1.5, group_bits=0x2),
     ]
+    if "point_lights" in scene_cfg:
+        lights += point_light_field(scene_cfg["point_lights"])
+    for inst in instances:
+        if inst.mesh in scene_cfg.get("light_masks", {}):
+            inst.material = dict(inst.material, light_group_mask_bits=int(
+                scene_cfg["light_masks"][inst.mesh]))
     scene_desc = dict(ambient_base_color=(0.22, 0.24, 0.3),
                       gi_diffuse_strength=0.7, gi_sky_strength=0.35)
     return SceneData(meshes, textures, instances, lights, foliage, scene_desc)

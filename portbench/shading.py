@@ -132,7 +132,7 @@ class Scene:
         self.leaf = self.kind[self.inst] == KINDS["leaf"]
         self.tri_no_cull = self.no_cull[self.inst]
         self.leaf_alpha = self.textures[names.index("leaf")][..., 3]
-        self.lights = data.lights
+        self.lights = state.lights  # as the frame pushed them
 
 
 def sample(tex, u, v, addressing: int):

@@ -3,12 +3,18 @@ traffic file (portbench/traffic/<name>.json) and the seed. One
 generator serves every mix; a mix is its parameters.
 
 A frame's state is plain numpy (camera, every instance's transform and
-the one before it, the character's pose), handed alike to the program
-side (program.py pushes it) and to the reference. The seed picks which
-foliage moves and the phases of their sway and of the character's pose;
-the orbit starts at the same angle for every seed, so every seed's
-window draws the same views (the views set the alpha-tested work and
-the memory it takes).
+the one before it, the character's pose, the scene's lights), handed
+alike to the program side (program.py pushes it) and to the reference.
+The seed picks which foliage moves and the phases of their sway and of
+the character's pose; the orbit starts at the same angle for every seed,
+so every seed's window draws the same views (the views set the
+alpha-tested work and the memory it takes).
+
+A mix with a `lights` block ({"resend": "every_frame", "moving": k,
+"bob": world units, "rate": cycles per frame}) re-sends the light list
+every frame, with k lights, which the seed picks with their phases,
+bobbing up and down by `bob`. Without one the lights are the scene's,
+set once.
 """
 
 from __future__ import annotations
@@ -22,17 +28,23 @@ import numpy as np
 from portbench import scene as sc
 from portbench.harness import UnknownName
 
-# The one loop and present mode the harness drives. A mix that names
-# another is refused, never run as this one.
-LOOP, PRESENT = "closed", "full_sync"
+# The one loop and present mode the harness drives, and the one way it
+# re-sends lights. A mix that names another is refused, never run as
+# these.
+LOOP, PRESENT, RESEND = "closed", "full_sync", "every_frame"
 
 
 def check_modes(traffic: dict):
     """Refuse a mix whose `loop` or `present` the harness does not drive
-    (it draws in a closed loop, in the view's default full sync)."""
+    (it draws in a closed loop, in the view's default full sync), or
+    whose light block re-sends its lights otherwise than every frame."""
     for key, mode in (("loop", LOOP), ("present", PRESENT)):
         if traffic.get(key) != mode:
             raise UnknownName(f"traffic: {key} {traffic.get(key)!r} is not driven")
+    lights = traffic.get("lights")
+    if lights is not None and lights.get("resend") != RESEND:
+        raise UnknownName(f"traffic: lights resend {lights.get('resend')!r} "
+                          "is not driven")
 
 
 @dataclasses.dataclass
@@ -44,6 +56,8 @@ class FrameState:
     transforms: List[np.ndarray]  # per instance (4, 4) f32
     previous: List[np.ndarray]  # per instance, the frame before's
     character: sc.MeshData  # the pose uploaded this frame
+    lights: list  # the frame's lights, dicts of api Light fields
+    resend_lights: bool  # the lights are set anew this frame
 
 
 def look_at_rh(eye, target, up=(0.0, 1.0, 0.0)) -> np.ndarray:
@@ -78,6 +92,12 @@ class Walk:
         self.base = [inst.transform for inst in scene.instances]
         self.character = next(i for i, inst in enumerate(scene.instances)
                               if inst.mesh == "character")
+        self.light_mix = traffic.get("lights")
+        if self.light_mix is not None:
+            lrng = np.random.default_rng([seed, 0x116E])
+            self.bobbing = sorted(int(i) for i in lrng.choice(
+                len(scene.lights), int(self.light_mix["moving"]), replace=False))
+            self.bob_phase = lrng.uniform(0.0, 2 * np.pi, len(self.bobbing))
 
     @property
     def warmup_frames(self) -> int:
@@ -112,4 +132,18 @@ class Walk:
         pose = sc.character_mesh(ch["rings"], ch["segments"], ch["height"],
                                  ch["radius"], bend)
         return FrameState(f, eye, target, look_at_rh(eye, target), transforms,
-                          previous, pose)
+                          previous, pose, self._lights(f),
+                          self.light_mix is not None)
+
+    def _lights(self, f: int) -> list:
+        """The scene's lights, the bobbing ones moved to frame f."""
+        if self.light_mix is None:
+            return self.scene.lights
+        mix = self.light_mix
+        lights = [dict(light) for light in self.scene.lights]
+        for k, i in enumerate(self.bobbing):
+            x, y, z = lights[i]["position"]
+            dy = mix["bob"] * math.sin(self.bob_phase[k]
+                                       + 2 * math.pi * mix["rate"] * f)
+            lights[i]["position"] = (x, y + dy, z)
+        return lights
