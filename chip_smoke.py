@@ -220,9 +220,10 @@ SWEEP_TWIN_SLICE = 1 << 18
 # normal, specular, flow, instance; the shadow variant writes color and
 # one zero plane), and the row of each distinct triangle hit. The quad
 # fetches are left out.
-HIT_ROW_BYTES = 122 * 4
+HIT_ROW_BYTES = 108 * 4  # rows.TROW floats
 HIT_LANE_IN_BYTES, HIT_MIP_IN_BYTES = 4 + 12 + 12, 28
-HIT_LANE_OUT_BYTES, HIT_SHADOW_OUT_BYTES = 122 * 4 + 16 + 36 + 4, 122 * 4 + 16 + 12 + 4
+HIT_LANE_OUT_BYTES = HIT_ROW_BYTES + 16 + 36 + 4
+HIT_SHADOW_OUT_BYTES = HIT_ROW_BYTES + 16 + 12 + 4
 CASTLE_W, CASTLE_H = 640, 480
 MAIN_FRAMES = 10
 GI_W, GI_H = 1280, 720

@@ -12,7 +12,7 @@
 // is one launch a call.
 //
 // Layout. One thread per hit lane, HIT_THREADS lanes a CTA. A lane reads
-// its triangle's row of tri_rows (TROW floats, 488 B) once from device
+// its triangle's row of tri_rows (TROW floats, 432 B) once from device
 // memory, as float2 (a row starts on an 8-byte boundary), and writes it
 // to rows_t lane-contiguously (the plain version's tri_rows[tri].T); the
 // fields it shades from are read again from the row through L1. The
@@ -34,7 +34,12 @@
 // diffuse fetch of the opaque hit of a camera ray). Every pass of every
 // cell calls the same function; only the inputs' widths differ.
 //
-// What bounds it. Bytes: the 488 B row read and written, 36 B of lane
+// The row carries the instance's light group mask as two exact 16-bit
+// halves (T_LMASK), not an eligibility column per light: the lighting
+// tests it against every light's group bits. The kernel copies it with
+// the row and reads nothing of the lights.
+//
+// What bounds it. Bytes: the 432 B row read and written, 36 B of lane
 // inputs, 56 B of planes and 4 B of instance written, ~1 KB a lane with a
 // quad fetch or two. The arithmetic is ~200-400 FP32 operations a lane.
 
@@ -45,7 +50,7 @@ namespace {
 constexpr int HIT_THREADS = 128;
 
 // Triangle-row columns (pipeline/rows.py).
-constexpr int TROW = 122;
+constexpr int TROW = 108;
 constexpr int T_P0 = 0;
 constexpr int T_P1 = 3;
 constexpr int T_P2 = 6;
@@ -66,8 +71,9 @@ constexpr int T_TEX_D = 88;
 constexpr int T_TEX_N = 89;
 constexpr int T_TEX_S = 90;
 constexpr int T_SAMPLER = 91;
-constexpr int T_TEX_D2 = 109;
-constexpr int T_REC = 110;
+constexpr int T_LMASK = 92;
+constexpr int T_TEX_D2 = 95;
+constexpr int T_REC = 96;
 // Material floats, relative to T_MAT.
 constexpr int M_UV_DETAIL = 1;
 constexpr int M_SOLID_ALPHA = 10;

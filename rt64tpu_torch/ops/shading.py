@@ -438,7 +438,7 @@ def build_tri_rows(sb):
     parts.append(it[R.I_TEX_N][None])
     parts.append(it[R.I_TEX_S][None])
     parts.append(it[R.I_SAMPLER][None])
-    parts.append(it[R.I_ELIG : R.I_ELIG + R.MAX_ELIG_LIGHTS])
+    parts.append(it[R.I_LMASK : R.I_LMASK + 2])
     parts.append(it[R.I_INPUT_COUNT][None])
     parts.append(it[R.I_TEX_D2][None])
     parts.append(it[R.I_REC : R.I_REC + 12])

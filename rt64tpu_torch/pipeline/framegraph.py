@@ -62,7 +62,10 @@ class RenderConfig:
     max_reflections: int = 2  # rt64_view.cpp:60
     k_primary: int = 4  # alpha hit slots (<= MAX_HIT_QUERIES 16)
     k_secondary: int = 2
-    k_shadow: int = 1
+    # Alpha hit slots a shadow ray, their alphas summed as RT64's shadow
+    # any-hit sums every layer: a ray to a low light through foliage
+    # crosses leaves behind a clear texel of the first.
+    k_shadow: int = 4
     motion_blur_samples: int = 32  # rt64_view.cpp:53
     motion_blur_enabled: bool = True
     denoiser_enabled: bool = False

@@ -3,13 +3,17 @@
 Everything a shading point needs lives in ONE wide row per triangle:
 
   vertex rows  (V, VROW)  — object-space attrs, packed at mesh upload
-  instance rows (I, IROW) — transforms + material + combiner, per frame
+  instance rows (I, IROW) — transforms + material + combiner + light
+                            group mask, per frame
   triangle rows (T, TROW) — world-space, built per frame from
                             vertex+instance rows; one gather per hit
                             serves the tracer and every shading stage
 
-The column offsets are a contract shared with the JAX package, so a
-packed scene converts between the two field for field.
+The column offsets are those of the JAX package but for the light
+columns: where the JAX package keeps one eligibility column per light
+slot (16 of them), a row here keeps the instance's light group mask, so
+a scene may hold any number of lights (convert.py maps the one form to
+the other).
 """
 
 from __future__ import annotations
@@ -37,15 +41,15 @@ I_TEX_D = 63  # diffuse quad-pool record id (or -1)
 I_TEX_N = 64  # normal map record id
 I_TEX_S = 65  # specular map record id
 I_SAMPLER = 66  # filter + 4*h_addr + 16*v_addr
-I_ELIG = 67  # 16: per-light-slot eligibility (group mask & light bits)
-I_INPUT_COUNT = 83
-I_VIEWPORT = 84  # 4: x, y, w, h (0 w/h = full target) — raster path
-I_SCISSOR = 88  # 4: x, y, w, h (0 w/h = disabled)
-I_TEX_D2 = 92  # TEXEL1 quad-pool record id (or -1)
-I_REC = 93  # 12: baked quad-pool records (offset, w, h) for the
+I_LMASK = 67  # 2: light_group_mask_bits, low and high 16 bits (pack_mask)
+I_INPUT_COUNT = 69
+I_VIEWPORT = 70  # 4: x, y, w, h (0 w/h = full target) — raster path
+I_SCISSOR = 74  # 4: x, y, w, h (0 w/h = disabled)
+I_TEX_D2 = 78  # TEXEL1 quad-pool record id (or -1)
+I_REC = 79  # 12: baked quad-pool records (offset, w, h) for the
             # diffuse / TEXEL1 / normal / specular textures, so sampling
             # needs no per-pixel record lookup
-IROW = 105
+IROW = 91
 
 # material float sub-layout (relative to I_MAT / T_MAT)
 M_IGNORE_NORMAL = 0
@@ -104,18 +108,22 @@ T_TEX_D = 88
 T_TEX_N = 89
 T_TEX_S = 90
 T_SAMPLER = 91
-T_ELIG = 92  # 16
-T_INPUT_COUNT = 108
-T_TEX_D2 = 109  # TEXEL1 record id
-T_REC = 110  # 12: baked texture records (see I_REC)
-TROW = 122
+T_LMASK = 92  # 2: the instance's light group mask (see I_LMASK)
+T_INPUT_COUNT = 94
+T_TEX_D2 = 95  # TEXEL1 record id
+T_REC = 96  # 12: baked texture records (see I_REC)
+TROW = 108
 
-MAX_ELIG_LIGHTS = 16  # MAX_LIGHTS (Lights.hlsli:24)
+# A light group mask is 32 bits; a float32 holds integers exactly up to
+# 2^24, so the mask rides a row as two exact 16-bit halves. A light l
+# lights a point when (mask & groupBits[l]) != 0 (Lights.hlsli:127-130),
+# tested on the device for every light (ops/lighting.plan_lights).
+LMASK_HALF = 1 << 16
 
 # ---- compact context rows (post-resolve per-pixel gathers) -----------------
 # The resolved per-pixel winner's row is re-gathered at full pixel width
 # for lighting context and reflection/refraction state; those consumers
-# read only these 26 of the TROW columns (framegraph._ctx_table).
+# read only these 12 of the TROW columns (framegraph._ctx_table).
 CTX_FLAGS = 0  # T_FLAGS
 CTX_IGNORE_NORMAL = 1  # T_MAT + M_IGNORE_NORMAL
 CTX_SPEC_EXP = 2  # T_MAT + M_SPEC_EXP
@@ -124,8 +132,8 @@ CTX_SELF_LIGHT = 4  # 3: T_MAT + M_SELF_LIGHT
 CTX_REFL_FRESNEL = 7  # T_MAT + M_REFL_FRESNEL
 CTX_REFL_SHINE = 8  # T_MAT + M_REFL_SHINE
 CTX_REFRACTION = 9  # T_MAT + M_REFRACTION
-CTX_ELIG = 10  # MAX_ELIG_LIGHTS: T_ELIG
-CTXROW = CTX_ELIG + MAX_ELIG_LIGHTS  # 26
+CTX_LMASK = 10  # 2: T_LMASK
+CTXROW = CTX_LMASK + 2  # 12
 
 # (start, length) TROW column runs concatenated into the ctx table, in
 # CTX_* order.
@@ -137,7 +145,7 @@ CTX_RUNS = (
     (T_MAT + M_SELF_LIGHT, 3),
     (T_MAT + M_REFL_FRESNEL, 2),  # fresnel, shine (adjacent)
     (T_MAT + M_REFRACTION, 1),
-    (T_ELIG, MAX_ELIG_LIGHTS),
+    (T_LMASK, 2),
 )
 assert sum(r[1] for r in CTX_RUNS) == CTXROW
 
@@ -158,3 +166,17 @@ def unpack_cc(packed: torch.Tensor) -> torch.Tensor:
     items = [(v >> (i * 3)) & 7 for i in range(4)]
     items += [(v >> (12 + i * 3)) & 7 for i in range(4)]
     return torch.stack(items, dim=-1)
+
+
+def pack_mask(mask: int) -> tuple:
+    """A 32-bit light group mask as its two f32-exact 16-bit halves
+    (I_LMASK, I_LMASK + 1)."""
+    m = int(mask) & 0xFFFFFFFF
+    return float(m % LMASK_HALF), float(m // LMASK_HALF)
+
+
+def unpack_mask(lo: torch.Tensor, hi: torch.Tensor) -> torch.Tensor:
+    """(...,) float halves -> (...,) int32 with the mask's 32 bits (bit 31
+    the sign bit: the int64 sum wraps on the cast)."""
+    return (lo.to(torch.int64) + hi.to(torch.int64) * LMASK_HALF).to(
+        torch.int32)

@@ -12,11 +12,15 @@ Everything packs into wide rows (pipeline/rows.py):
     fetch reads one quad; a diffuse texture of a mip-LOD shader gets its
     whole mip chain (texture.mip_select's layout).
   * per frame: instance rows (transforms, materials, combiner, light
-    eligibility) and lights — the upload-heap analog.
+    group mask) and lights with their group bits — the upload-heap
+    analog.
 
 Tensors land on the packer's torch device. The layout matches the JAX
-package's SceneBuffers field for field (rt64tpu_torch/convert.py moves
-a packed scene across).
+package's SceneBuffers field for field but for the lights: an instance
+row carries its light group mask where the JAX package's carries one
+eligibility column per light slot, and `light_groups` carries the
+lights' group bits (rt64tpu_torch/convert.py moves a packed scene
+across).
 """
 
 from __future__ import annotations
@@ -73,8 +77,10 @@ class RasterHost(NamedTuple):
 
 class SceneBuffers(NamedTuple):
     """Device-resident scene. All shapes fixed by SceneLimits. The
-    fields up to `features` match the JAX package's; raster_host holds
-    host copies of the raster tables (RasterHost)."""
+    fields up to `features` match the JAX package's but for
+    `light_groups` and the instance rows' light columns (module
+    docstring); raster_host holds host copies of the raster tables
+    (RasterHost)."""
 
     vertex_rows: torch.Tensor  # (V, VROW) f32 object-space attrs
     tri_idx: torch.Tensor  # (T, 3) int32
@@ -83,6 +89,7 @@ class SceneBuffers(NamedTuple):
     instance_rows: torch.Tensor  # (I, IROW) f32
     lights: torch.Tensor  # (L, 14) f32
     light_count: torch.Tensor  # () int32
+    light_groups: torch.Tensor  # (L,) int32 groupBits (0 past the count)
     quad_pool: torch.Tensor  # (P/32, 128) int64 uint32 words, wide layout
     quad_records: torch.Tensor  # (Rec, 3) int32: offset, width, height
     raster_bg: torch.Tensor  # (RB, RR_WIDTH) raster background triangles
@@ -369,9 +376,9 @@ class ScenePacker:
         n_act = min(len(instances), I)
         tfs = np.empty((n_act, 4, 4), np.float32)
         ptfs = np.empty((n_act, 4, 4), np.float32)
-        elig_n = min(len(lgroups), R.MAX_ELIG_LIGHTS)
+        # Rows hold the light group mask, not the lights: re-sent lights
+        # leave the cache valid.
         epoch = (
-            tuple(int(g) for g in lgroups[:elig_n]),
             id(self._np.get("quad_records")),
             getattr(self, "_next_rec", 0),
         )
@@ -464,10 +471,8 @@ class ScenePacker:
             if de.scissor_rect is not None:
                 irows[ii, R.I_SCISSOR : R.I_SCISSOR + 4] = de.scissor_rect
 
-            # Light eligibility: exact uint32 mask test done on host.
-            gm = np.uint32(m.light_group_mask_bits & 0xFFFFFFFF)
-            for l in range(elig_n):
-                irows[ii, R.I_ELIG + l] = float(bool(gm & lgroups[l]))
+            irows[ii, R.I_LMASK : R.I_LMASK + 2] = R.pack_mask(
+                m.light_group_mask_bits)
 
             new_cache[id(inst)] = (ckey, irows[ii, R.I_MAT :].copy())
 
@@ -507,6 +512,9 @@ class ScenePacker:
         lights = np.zeros((L, LIGHT_WIDTH), np.float32)
         count = min(len(larr), L)
         lights[:count] = larr[:count, :LIGHT_WIDTH]
+        groups = np.zeros(L, np.uint32)
+        groups[:count] = lgroups[:count]
+        profiling.count_lights(pushed=count)
 
         rb_rows, rb_count = self._pack_raster(instances, raster_bg or [])
         rf_rows, rf_count = self._pack_raster(instances, raster_fg or [])
@@ -562,6 +570,7 @@ class ScenePacker:
             instance_rows=self._up(irows),
             lights=self._up(lights),
             light_count=i32(count),
+            light_groups=i32(groups.view(np.int32)),
             **self._dev_quads,
             raster_bg=self._up(rb_rows),
             raster_bg_count=i32(rb_count),

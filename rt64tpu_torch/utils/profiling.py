@@ -28,6 +28,10 @@ release (RT64_LOG_* macros, rt64_common.h:153-162). Here:
     reflection_bounces: the live mirror rays of the bounces it issued,
     the lanes those bounces traced, and the bounces it did not issue for
     want of a live ray), added while a profiler records.
+  * count_lights(pushed, shadow_lanes): the lights a frame's scene
+    packing pushed (pipeline/scene_buffers.pack_frame) and the shadow
+    lanes its light plans handed to the one batched shadow trace
+    (ops/lighting.trace_plans), added while a profiler records.
   * frame_stats(): the record.
   * trace(): torch.profiler around a block, a chrome trace written
     into log_dir (with the spans).
@@ -58,6 +62,9 @@ LAUNCHES = ("opaque_launches",  # K1
 REFLECTION = ("reflection_live_rays",  # live mirror rays, summed over bounces
               "reflection_traced_lanes",  # lanes the issued bounces traced
               "reflection_bounces_skipped")  # bounces with no live ray
+# The light loop's counters (count_lights).
+LIGHTS = ("lights_pushed",  # lights in the packed scenes' light buffers
+          "light_shadow_lanes")  # lanes the light plans' shadow rays take
 
 
 def recording() -> bool:
@@ -75,9 +82,10 @@ class FrameRecord:
     """What the frames made while a torch profiler recorded: Device.draw
     calls (frames), render_frame calls (renders: alpha-boost re-renders
     and bands included), each stage's ms and calls, the bytes upload()
-    copied, the tracing wrappers' launches (LAUNCHES) and the reflection
-    bounces' counters (REFLECTION). The whole process's, whatever thread
-    added, under one lock like tracer_cuda.LaunchCounts."""
+    copied, the tracing wrappers' launches (LAUNCHES), the reflection
+    bounces' counters (REFLECTION) and the light loop's (LIGHTS). The
+    whole process's, whatever thread added, under one lock like
+    tracer_cuda.LaunchCounts."""
 
     _lock = threading.Lock()
 
@@ -89,7 +97,7 @@ class FrameRecord:
             self.frames = 0
             self.renders = 0
             self.upload_bytes = 0
-            self.counts = dict.fromkeys(LAUNCHES + REFLECTION, 0)
+            self.counts = dict.fromkeys(LAUNCHES + REFLECTION + LIGHTS, 0)
             self.stage_ms = {}
             self.stage_calls = {}
             self._timed = []  # (name, device, start, end): events not yet read
@@ -223,10 +231,20 @@ def count_reflection(live_rays: int, traced_lanes: int, skipped: int):
             record.add_count(name, amount)
 
 
+def count_lights(pushed: int = 0, shadow_lanes: int = 0):
+    """Lights pushed by a frame's scene packing, or the shadow lanes a
+    batch of light plans hands to the shadow trace (LIGHTS), while a
+    profiler records. Host ints the caller already holds: no launch, no
+    wait."""
+    if recording():
+        record.add_count("lights_pushed", pushed)
+        record.add_count("light_shadow_lanes", shadow_lanes)
+
+
 def frame_stats() -> dict:
     """{frames, renders, stage_ms: {name: total ms}, stage_calls: {name:
-    calls}, upload_bytes, and a count for each of LAUNCHES and
-    REFLECTION} made while a torch profiler recorded, since the process
+    calls}, upload_bytes, and a count for each of LAUNCHES, REFLECTION
+    and LIGHTS} made while a torch profiler recorded, since the process
     started or reset_frame_stats(). Waits for the stage events not yet
     read."""
     return record.stats()

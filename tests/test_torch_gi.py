@@ -41,6 +41,7 @@ from rt64tpu.utils.castle_scene import build_castle_scene as jax_castle
 from rt64tpu.utils.testscenes import build_sample_scene as jax_sample
 
 from rt64tpu_torch.convert import (
+    ctx_rows_from_slots,
     global_params_from_numpy,
     history_from_numpy,
     scene_buffers_from_numpy,
@@ -238,7 +239,7 @@ def test_compute_lights_random_matches():
     pscene = pfg.make_trace_scene(sb_t, prows_t, cfg_t.alpha_cap)
     pbn_t = torch.from_numpy(pbn.packed_table())
     t = lambda a: torch.from_numpy(a)
-    pctx = pli.ctx_from_rows(t(ctx_rows), t(tri >= 0))
+    pctx = pli.ctx_from_rows(t(ctx_rows_from_slots(ctx_rows)), t(tri >= 0))
     pargs = (pfg._pixel_grid(cfg_t, "cpu"), pbn_t, gp_t.frame_count, t(dirs),
              t(pos), t(nrm), t(spec), pctx)
     plight, pdrop = pli.compute_lights_random(

@@ -88,7 +88,8 @@ def _rows(rng):
         rows[:, col] = rng.integers(-1, 4, TRIS)
     rows[:, R.T_SAMPLER] = (rng.integers(0, 2, TRIS) + 4 * rng.integers(0, 4, TRIS)
                             + 16 * rng.integers(0, 4, TRIS))
-    rows[:, R.T_ELIG:R.T_INPUT_COUNT] = rng.integers(0, 2, (TRIS, 16))
+    rows[:, R.T_LMASK:R.T_INPUT_COUNT] = rng.integers(0, R.LMASK_HALF,
+                                                      (TRIS, 2))
     rec = np.stack([rng.integers(0, QUADS, (TRIS, 4)),
                     rng.integers(0, 17, (TRIS, 4)),
                     rng.integers(0, 17, (TRIS, 4))], -1)

@@ -21,7 +21,8 @@ from rt64tpu.ops import tracer_pallas as jtp
 from rt64tpu.pipeline import framegraph as jfg
 from rt64tpu.utils.castle_scene import build_castle_scene
 
-from rt64tpu_torch.convert import global_params_from_numpy, scene_buffers_from_numpy
+from rt64tpu_torch.convert import (ctx_rows_from_slots, global_params_from_numpy,
+                                   scene_buffers_from_numpy)
 from rt64tpu_torch.ops import bluenoise as pbn
 from rt64tpu_torch.ops import lighting as pli
 from rt64tpu_torch.ops import shading as psh
@@ -108,7 +109,7 @@ def _run_port(sb, gp, cfg, x, max_lights):
     bn = pbn.grid_sampler(torch.from_numpy(pbn.packed_table()), cfg.rt_width,
                           cfg.rt_height, swizzle=swz)
     t = {k: torch.from_numpy(v) for k, v in x.items()}
-    ctx = pli.ctx_from_rows(t["ctx_rows"], t["tri"] >= 0)
+    ctx = pli.ctx_from_rows(torch.from_numpy(ctx_rows_from_slots(x["ctx_rows"])), t["tri"] >= 0)
     plan = pli.plan_lights(
         sb, pix, bn, gp.frame_count, t["dirs"], t["pos"], t["nrm"], t["spec"],
         ctx, max_light_count=max_lights, di_samples=cfg.di_samples,

@@ -45,6 +45,7 @@ from rt64tpu.utils.testscenes import SID_TEXTURE, checker_texture, interleave
 
 from rt64tpu_torch.convert import (
     global_params_from_numpy,
+    rows_to_slots,
     scene_buffers_from_numpy,
 )
 from rt64tpu_torch.ops import bluenoise as pbn
@@ -52,6 +53,7 @@ from rt64tpu_torch.ops import mipmaps as pmips
 from rt64tpu_torch.ops import raydiff as prd
 from rt64tpu_torch.ops import texture as ptex
 from rt64tpu_torch.pipeline import framegraph as pfg
+from rt64tpu_torch.pipeline import rows as R
 from rt64tpu_torch.utils.ssim import ssim
 from rt64tpu_torch.utils.testscenes import build_mip_floor
 
@@ -278,8 +280,10 @@ def test_mip_scene_packs_like_jax():
             psb.quad_pool.numpy(), np.asarray(jsb.quad_pool).astype(np.int64))
         np.testing.assert_array_equal(psb.quad_records.numpy(),
                                       np.asarray(jsb.quad_records))
-        np.testing.assert_array_equal(psb.instance_rows.numpy(),
-                                      np.asarray(jsb.instance_rows))
+        np.testing.assert_array_equal(
+            rows_to_slots(psb.instance_rows.numpy(), R.I_LMASK,
+                          psb.light_groups.numpy(), int(psb.light_count)),
+            np.asarray(jsb.instance_rows))
         used = int(np.count_nonzero(np.asarray(jsb.quad_pool)))
         chain = sum(lv.shape[0] * lv.shape[1] for lv in pmips.generate_mips(
             np.zeros((64, 64, 4), np.uint8), ptex.MAX_MIP_LEVELS))

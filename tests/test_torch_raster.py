@@ -37,6 +37,7 @@ from rt64tpu.pipeline import framegraph as jfg
 from rt64tpu.utils import testscenes as jts
 
 from rt64tpu_torch import descriptors as pd
+from rt64tpu_torch.convert import rows_to_slots
 from rt64tpu_torch.limits import SceneLimits
 from rt64tpu_torch.ops import filters as pfilters
 from rt64tpu_torch.ops import raster as praster
@@ -112,9 +113,14 @@ def test_pack_raster_rows_match():
     psb = _packed(False)
     assert int(jsb.raster_bg_count) == int(psb.raster_bg_count) == 2
     assert int(jsb.raster_fg_count) == int(psb.raster_fg_count) == 24
-    for f in ("raster_bg", "raster_fg", "instance_rows"):
+    for f in ("raster_bg", "raster_fg"):
         np.testing.assert_array_equal(_host(getattr(jsb, f)),
                                       _host(getattr(psb, f)), err_msg=f)
+    # The light columns in the JAX package's form (convert.rows_to_slots).
+    np.testing.assert_array_equal(
+        _host(jsb.instance_rows),
+        rows_to_slots(_host(psb.instance_rows), R.I_LMASK,
+                      _host(psb.light_groups), int(psb.light_count)))
     assert jsb.features.has_raster_bg and psb.features.has_raster_bg
     host = psb.raster_host
     np.testing.assert_array_equal(host.bg, _host(psb.raster_bg)[:2])
@@ -260,7 +266,8 @@ def test_rasterize_matches(raster_inputs, count):
     with jax.disable_jit():
         want = jraster.rasterize(
             jnp.asarray(image.reshape(4, -1)), jnp.asarray(rows),
-            jnp.int32(count), jnp.asarray(irows), jnp.asarray(pool),
+            jnp.int32(count), jnp.asarray(rows_to_slots(irows, R.I_LMASK, (), 0)),
+            jnp.asarray(pool),
             jnp.asarray(records), W, H, jnp.zeros(W * H))
     got = _port_raster(raster_inputs, count)
     np.testing.assert_allclose(got, np.asarray(want).reshape(4, H, W), **TOL)

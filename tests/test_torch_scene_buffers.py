@@ -2,7 +2,11 @@
 port's ScenePacker emits equals the JAX package's, exactly, on the
 sample and castle scenes (the port's host copies of the raster tables,
 raster_host, equal the JAX fields they copy); so do the per-frame
-GlobalParams of the two view drivers."""
+GlobalParams of the two view drivers. The instance rows' light columns
+differ in form (the port's light group mask, the JAX package's
+eligibility per light slot): the port's rows mapped into the JAX form
+with the lights' group bits (convert.rows_to_slots) equal the JAX rows
+exactly."""
 
 import numpy as np
 import pytest
@@ -10,7 +14,9 @@ import pytest
 from rt64tpu.utils.castle_scene import build_castle_scene as jax_castle
 from rt64tpu.utils.testscenes import build_sample_scene as jax_sample
 
+from rt64tpu_torch.convert import rows_to_slots
 from rt64tpu_torch.pipeline import framegraph as pfg
+from rt64tpu_torch.pipeline import rows as R
 from rt64tpu_torch.pipeline.scene_buffers import SceneBuffers
 from rt64tpu_torch.utils.castle_scene import build_castle_scene as port_castle
 from rt64tpu_torch.utils.testscenes import build_sample_scene as port_sample
@@ -37,8 +43,16 @@ def test_scene_buffers_equal(name):
     jr, pr = _renderers(name)
     jsb, psb = jr._sb, pr._sb
     assert psb.features._asdict() == jsb.features._asdict()
+    count = int(psb.light_count)
+    groups = psb.light_groups.numpy()
+    assert count == len(pr.view.scene.lights)
+    assert (groups[count:] == 0).all()
+    assert groups[:count].tolist() == [
+        int(light.group_bits) - (1 << 32) * (int(light.group_bits) >= 1 << 31)
+        for light in pr.view.scene.lights]
+    slots = lambda rows: rows_to_slots(rows, R.I_LMASK, groups, count)
     for field in SceneBuffers._fields:
-        if field == "features":
+        if field in ("features", "light_groups"):
             continue
         if field == "raster_host":
             # The port's host copies of the raster tables: the JAX
@@ -49,7 +63,7 @@ def test_scene_buffers_equal(name):
                 np.testing.assert_array_equal(
                     getattr(host, layer),
                     np.asarray(getattr(jsb, f"raster_{layer}"))[:n])
-            np.testing.assert_array_equal(host.instance_rows,
+            np.testing.assert_array_equal(slots(host.instance_rows),
                                           np.asarray(jsb.instance_rows))
             np.testing.assert_array_equal(host.quad_records,
                                           np.asarray(jsb.quad_records))
@@ -60,6 +74,8 @@ def test_scene_buffers_equal(name):
             continue
         j = np.asarray(j)
         p = p.numpy()
+        if field == "instance_rows":
+            p = slots(p)
         assert j.shape == p.shape, field
         np.testing.assert_array_equal(j, p, err_msg=field)
     assert pr.packer.alpha_cap == jr.packer.alpha_cap
@@ -73,8 +89,11 @@ def test_global_params_equal(name):
     jcfg, pcfg = jr._config(), pr._config()
     for f in ("rt_width", "rt_height", "di_samples", "gi_samples",
               "max_lights", "max_reflections", "refraction_enabled",
-              "alpha_cap", "k_primary", "k_shadow", "tiled"):
+              "alpha_cap", "k_primary", "tiled"):
         assert getattr(jcfg, f) == getattr(pcfg, f), f
+    # The port sums 4 alpha layers a shadow ray, as RT64 sums every
+    # layer; the JAX package keeps 1.
+    assert (jcfg.k_shadow, pcfg.k_shadow) == (1, 4)
     jgp, pgp = jr._global_params(jcfg), pr._global_params(pcfg)
     for f in pfg.GlobalParams._fields:
         j, p = getattr(jgp, f), getattr(pgp, f)

@@ -65,6 +65,7 @@ from rt64tpu.utils.castle_scene import build_castle_scene as jax_castle
 from rt64tpu.utils.testscenes import build_sample_scene as jax_sample
 
 from rt64tpu_torch.convert import (
+    ctx_rows_from_slots,
     global_params_from_numpy,
     scene_buffers_from_numpy,
 )
@@ -210,7 +211,7 @@ def test_compute_lights_random_without_shadows_matches(castle_state):
     jplan = jli.plan_lights(sb, *jargs, 1, 1, jnp.asarray(noise))
 
     t = torch.from_numpy
-    pctx = pli.ctx_from_rows(t(ctx_rows), t(tri >= 0))
+    pctx = pli.ctx_from_rows(t(ctx_rows_from_slots(ctx_rows)), t(tri >= 0))
     pargs = (pfg._pixel_grid(cfg_t, "cpu"), t(pbn.packed_table()),
              gp_t.frame_count, t(dirs), t(pos), t(nrm), t(spec), pctx)
     launches = vars(tc.launch_counts).copy()
@@ -261,6 +262,8 @@ def test_lit_secondary_fold_matches(castle_state, store_any, fog_mode):
              "transparent", "dropped")
     want = dict(zip(names, (np.asarray(a) for a in want)))
     got = dict(zip(names, (_np(a) for a in got)))
+    # The context rows' light columns in the port's form.
+    want["row"] = ctx_rows_from_slots(want["row"])
     same = want["inst"] == got["inst"]
     stored = got["inst"] >= 0
     print(f"store_any={store_any} inst_agree={same.mean()} "

@@ -19,13 +19,15 @@ from rt64tpu.ops import texture as jtex
 from rt64tpu.pipeline import framegraph as jfg
 from rt64tpu.utils.castle_scene import build_castle_scene
 
-from rt64tpu_torch.convert import global_params_from_numpy, scene_buffers_from_numpy
+from rt64tpu_torch.convert import (global_params_from_numpy, rows_to_slots,
+                                   scene_buffers_from_numpy)
 from rt64tpu_torch.ops import bluenoise as pbn
 from rt64tpu_torch.ops import fog as pfog
 from rt64tpu_torch.ops import shading as psh
 from rt64tpu_torch.ops import sky as psky
 from rt64tpu_torch.ops import texture as ptex
 from rt64tpu_torch.pipeline import framegraph as pfg
+from rt64tpu_torch.pipeline import rows as R
 
 TOL = dict(rtol=1e-5, atol=1e-5)
 
@@ -53,11 +55,19 @@ def _np(x):
     return x.numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
+def _jax_form(sb_t, rows):
+    """The port's triangle rows (T, TROW) in the JAX package's form: the
+    light group mask as eligibility per light slot (convert.rows_to_slots)."""
+    return rows_to_slots(rows, R.T_LMASK, sb_t.light_groups.numpy(),
+                         int(sb_t.light_count))
+
+
 def test_build_tri_rows_matches(castle):
     sb, _, _, sb_t, _, _ = castle
     j_rows, _ = jsh.build_tri_rows(sb)
     p_rows, p_rows_t = psh.build_tri_rows(sb_t)
-    np.testing.assert_allclose(_np(j_rows), _np(p_rows), **TOL)
+    np.testing.assert_allclose(_np(j_rows), _jax_form(sb_t, _np(p_rows)),
+                               **TOL)
     np.testing.assert_array_equal(_np(p_rows), _np(p_rows_t).T)
 
 
@@ -85,9 +95,11 @@ def test_shade_hits_matches(castle, shadow):
     p = psh.shade_hits(sb_t, p_rows, *map(torch.from_numpy, (dirs, tri, u, v, noise)),
                        shadow_variant=shadow)
     np.testing.assert_array_equal(_np(j.instance), _np(p.instance))
-    for field in ("color", "normal", "specular", "flow", "rows_t"):
+    for field in ("color", "normal", "specular", "flow"):
         np.testing.assert_allclose(_np(getattr(j, field)), _np(getattr(p, field)),
                                    err_msg=field, **TOL)
+    np.testing.assert_allclose(_np(j.rows_t), _jax_form(sb_t, _np(p.rows_t).T).T,
+                               err_msg="rows_t", **TOL)
     alpha = _np(p.color)[3]
     assert 0 < (alpha > 0.5).mean() < 1  # foliage alpha and opaque hits
 

@@ -47,7 +47,14 @@ PASSES = ("setup", "primary", "direct", "indirect", "refraction",
 PARENT.update({f"rt64.pass.{p}": "rt64.scene.render" for p in PASSES})
 # The scene's cluster tables, built by the frame's first trace.
 PARENT["rt64.trace.tables"] = "rt64.pass.primary"
-STAGES = tuple(f"rt64.pass.{p}" for p in PASSES) + ("rt64.view.present",)
+# A light plan (ops/lighting.plan_lights) lies in any pass that lights
+# points: the primary pass's transparent light, the direct light, the GI
+# bounce's, the refraction's and each reflection bounce's.
+PARENT["rt64.lights.plan"] = tuple(
+    f"rt64.pass.{p}" for p in ("primary", "direct", "indirect", "refraction",
+                               "reflection"))
+STAGES = tuple(f"rt64.pass.{p}" for p in PASSES) + ("rt64.view.present",
+                                                    "rt64.lights.plan")
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -114,7 +121,7 @@ def test_a_draw_records_every_span_nested(drawn):
         got = _parent(span, spans)
         if span[0].startswith("rt64.pass.") and got == "rt64.view.rerender":
             got = _parent(next(s for s in spans if s[0] == got), spans)
-        assert got == want, span[0]
+        assert got in want if isinstance(want, tuple) else got == want, span[0]
     assert sum(s[0] == "rt64.pass.reflection" for s in spans) == 2
 
 
@@ -149,6 +156,10 @@ def test_a_reset_mesh_counts_its_packed_bytes(drawn):
 
 
 def test_band_workers_keep_one_record(drawn):
+    spans, whole = drawn["pushed"]
+    plans = (whole["stage_calls"]["rt64.lights.plan"]
+             // sum(s[0] == "rt64.pass.setup" for s in spans))
+    assert plans >= 5
     r = drawn["view"]._renderer
     cfg = r._config()
     fn = tiling.sharded_render(cfg, 2)
@@ -161,7 +172,8 @@ def test_band_workers_keep_one_record(drawn):
     assert st["frames"] == 0 and st["renders"] == 2
     assert set(st["stage_ms"]) == set(STAGES) - {"rt64.view.present"}
     for name, calls in st["stage_calls"].items():
-        assert calls == (4 if name == "rt64.pass.reflection" else 2), name
+        per_band = {"rt64.pass.reflection": 2, "rt64.lights.plan": plans}
+        assert calls == 2 * per_band.get(name, 1), name
     assert st["stage_ms"]["rt64.pass.primary"] > 0.0
 
 
