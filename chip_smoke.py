@@ -25,6 +25,11 @@ result line):
      in slices) on every sweep of that frame: triangle ids exactly equal,
      t, u, v and bias bit-equal; per launch kernel ms (median of 25),
      plain ms, and the bound from its live rays and list entries;
+  4b'. the alpha cull's kernel against its plain twin (run on the card)
+     on every cull of that frame: the masks bit-equal, one launch a cull;
+     per cull kernel ms (median of 25), plain ms, and the bound from the
+     (live bundle, live box) pairs the cull needs (each bundle's boxes up
+     to its first hit) and its bytes;
   4c. the hit shader's kernel against its plain version (run on the
      card) on every shade_hits call of that frame: instance and rows_t
      equal, every float plane bit-equal; per call the width and live
@@ -130,8 +135,9 @@ result line):
      native 3840x2160 frame drawn in 4 bands of 540 rows (6 if 4 do not
      fit, and the failed allocation is printed), 8 frames with the
      history concatenated across the bands; SSIM, peaks, band ms; and
-     4b's and 4c's checks on every alpha sweep and every shade_hits
-     call of the last DLSS draw (1920x1080, the 4K cell's frame);
+     4b's, 4b''s and 4c's checks on every alpha sweep, every alpha cull
+     and every shade_hits call of the last DLSS draw (1920x1080, the 4K
+     cell's frame);
  18. inspector: castle 640x480 with one light just ahead of the camera
      and one far behind the castle: after "gizmos on" the rings are
      drawn, pixels in the open take the ring's colour and occluded ones
@@ -214,6 +220,16 @@ SWEEP_RAY_BYTES, SWEEP_SLOT_BYTES, SWEEP_ENTRY_BYTES = 32, 24, 49
 # planes at the 4K frame's 4,147,200 shadow lanes would not fit beside
 # the frame. A row's result does not depend on the other rows.
 SWEEP_TWIN_SLICE = 1 << 18
+# The alpha cull (csrc/alpha_cull.cu) walks a live bundle's live boxes in
+# list order up to its first hit. A pair it tests pays, per axis, 2
+# differences, 4 products and 8 minima or maxima (42), then the widening
+# of the interval, 2 products and 4 sums (6); the comparisons are not
+# counted. The pairs are those these inputs need: each live bundle's live
+# boxes up to and with its first hit, all of them where it hits none.
+# Bytes, each once: a lane's origin, direction and interval (32) and its
+# mask byte (1), a box (24).
+FLOPS_CULL_PAIR = 48
+CULL_LANE_BYTES, CULL_BOX_BYTES = 33, 24
 # The hit shader (csrc/hit_shade.cu) is bounded by bytes. A floor, each
 # byte once: a lane's inputs (its id, u, v, noise and direction; with the
 # mip level its t and two differentials) and its outputs (rows_t, color,
@@ -295,7 +311,8 @@ def bound_ms(n_bytes, n_flops):
 
 WRAPPERS = ("trace_opaque_blocks", "trace_shadow_blocks",
             "trace_opaque_mt_blocks", "trace_shadow_mt_blocks",
-            "prepare_opaque", "prepare_shadow", "alpha_sweep", "hit_shade")
+            "prepare_opaque", "prepare_shadow", "alpha_sweep", "hit_shade",
+            "alpha_cull")
 
 
 def capture_launches(draw):
@@ -576,6 +593,83 @@ def alpha_sweep_phase(tag, calls):
                rays=[r["rays"] for r in rows],
                live_rays=[r["live_rays"] for r in rows],
                max_abs_err=max(r["max_abs_err"] for r in rows),
+               ms=sum(r["ms"] for r in rows),
+               plain_ms=sum(r["plain_ms"] for r in rows),
+               bound_ms=sum(r["bound_ms"] for r in rows),
+               bound_by=dearest["bound_by"])
+    emit(out)
+    return out
+
+
+def cull_pairs(origins, dirs, t_min, t_max, lo, hi):
+    """The (live bundle, live box) pairs the alpha cull needs on these
+    inputs: each live bundle's live boxes in list order up to and with
+    its first hit, all of them where it hits none (by the twin's hit
+    plane)."""
+    import torch
+    from rt64tpu_torch.ops import tracer as ptr
+
+    hulls = ptr.bundle_hulls(origins, dirs, t_min, t_max)
+    hit, _ = ptr._slab_interval_hit(*hulls, lo, hi)
+    hit = hit[:, torch.all(lo <= hi, dim=0)]
+    live = hulls[0][0] <= hulls[1][0]
+    if hit.shape[1] == 0:
+        return 0
+    first = torch.where(hit.any(dim=1), hit.int().argmax(dim=1) + 1,
+                        hit.shape[1])
+    return int(first[live].sum())
+
+
+def alpha_cull_phase(tag, calls):
+    """alpha_cull_kernel against its plain twin, run on the card, on every
+    cull one draw launched (recorded with the inputs the frame gave it):
+    the masks bit-equal, one launch a cull. Each cull timed (the kernel:
+    median of 25, CUDA events; the twin once) and bounded by the larger
+    of its bytes and the FP32 work of the pairs it needs. One line a
+    cull; returns the draw's row, with the sums over its culls as ms,
+    plain_ms and bound_ms."""
+    import torch
+    from rt64tpu_torch.ops import tracer as ptr
+    from rt64tpu_torch.ops import tracer_cuda as tc
+
+    calls = [c for c in calls if c[0][0].shape[1] > 0]
+    check(calls, f"{tag}: the draw launched no alpha cull")
+    rows = []
+    for i, (args, kw) in enumerate(calls):
+        origins, dirs, t_min, t_max, lo, hi = args
+        n, m = origins.shape[1], lo.shape[1]
+        before = tc.launch_counts.alpha_cull_launches
+        got = tc.alpha_cull(*args, **kw)
+        launches = tc.launch_counts.alpha_cull_launches - before
+        want, plain_ms = timed(lambda: ptr._slab_any_bundled_plain(*args))
+        equal = torch.equal(got, want)
+        marked = int(want.sum())
+        del got, want
+        pairs = cull_pairs(*args)
+        torch.cuda.empty_cache()
+        ms = time_ms(lambda: tc.alpha_cull(*args, **kw), reps=25)
+        live = int((t_max >= t_min).sum())
+        live_bundles = int((t_max >= t_min).view(-1, 8).any(dim=1).sum())
+        live_boxes = int(torch.all(lo <= hi, dim=0).sum())
+        flops = pairs * FLOPS_CULL_PAIR
+        n_bytes = n * CULL_LANE_BYTES + m * CULL_BOX_BYTES
+        bms, by = bound_ms(n_bytes, flops)
+        row = dict(phase=tag, launch=i, lanes=n, live_lanes=live,
+                   live_bundles=live_bundles, boxes=m, live_boxes=live_boxes,
+                   marked_lanes=marked, pairs_needed=pairs,
+                   pairs_all=live_bundles * live_boxes, bit_equal=equal,
+                   alpha_cull_launches=launches, bytes=n_bytes, flops=flops,
+                   ms=ms, plain_ms=plain_ms, bound_ms=bms, bound_by=by,
+                   max_abs_err=0.0 if equal else None)
+        emit(row)
+        check(equal, f"{tag} launch {i}: the kernel's mask differs from its twin's")
+        check(launches == 1, f"{tag} launch {i}: {launches} launches, not 1")
+        rows.append(row)
+    dearest = max(rows, key=lambda r: r["bound_ms"])
+    out = dict(phase=f"{tag}_draw", launches=len(rows),
+               lanes=[r["lanes"] for r in rows],
+               live_lanes=[r["live_lanes"] for r in rows],
+               pairs_needed=[r["pairs_needed"] for r in rows], max_abs_err=0.0,
                ms=sum(r["ms"] for r in rows),
                plain_ms=sum(r["plain_ms"] for r in rows),
                bound_ms=sum(r["bound_ms"] for r in rows),
@@ -1033,6 +1127,9 @@ def phase_main_path():
     shades = counts["hit_shade_launches"]
     check(shades >= MAIN_FRAMES,
           f"the hit shader launched {shades} times in {MAIN_FRAMES} frames")
+    culls = counts["alpha_cull_launches"]
+    check(culls >= MAIN_FRAMES,
+          f"the alpha cull launched {culls} times in {MAIN_FRAMES} frames")
     check(counts["opaque_mt_launches"] == 0 and counts["shadow_mt_launches"] == 0,
           "the castle frame (below the size switch) launched K3 or K4")
     return row
@@ -2048,9 +2145,10 @@ def phase_bench5_fidelity():
     native 3840x2160 frame of bench.native_banded (bands of 3840x540,
     NATIVE_FRAMES frames, the history concatenated across the bands, at
     alpha boost 1), SSIM of the uint8 images. The alpha sweeps of the
-    last DLSS draw, and the K1 and K2 launches of the first frame's first
-    band, are held against their plain twins: (row, {"k1": row,
-    "k2": row}, the sweeps' row, the hit shader's row)."""
+    last DLSS draw, its alpha culls, and the K1 and K2 launches of the
+    first frame's first band, are held against their plain twins: (row,
+    {"k1": row, "k2": row}, the sweeps' row, the culls' row, the hit
+    shader's row)."""
     import torch
     from rt64tpu_torch import bench
     from rt64tpu_torch.utils.ssim import ssim
@@ -2069,6 +2167,7 @@ def phase_bench5_fidelity():
     cfg = view._renderer._last_cfg
     dlss_render = (cfg.rt_width, cfg.rt_height)
     sweep = alpha_sweep_phase("alpha_sweep_bench5", seen["alpha_sweep"])
+    cull = alpha_cull_phase("alpha_cull_bench5", seen["alpha_cull"])
     shade = hit_shade_phase("hit_shade_bench5", seen["hit_shade"])
     del dev, view, cfg, seen
     torch.cuda.empty_cache()
@@ -2104,7 +2203,7 @@ def phase_bench5_fidelity():
     check(row["prod_max"] > 0 and row["native_max"] > 0,
           "a bench5 fidelity frame is black")
     torch.cuda.empty_cache()
-    return row, kernels_on_largest("native_band", seen), sweep, shade
+    return row, kernels_on_largest("native_band", seen), sweep, cull, shade
 
 
 def gizmo_ring(view, light, w, h):
@@ -2549,9 +2648,11 @@ def run(args):
           "the castle frame launched no K1 or K2")
     k1 = phase_k1("k1", seen["trace_opaque_blocks"][-1])
     k2 = phase_k2("k2", seen["trace_shadow_blocks"][-1])
-    # 4b. the alpha sweep's kernel on every sweep of that frame; 4c. the
-    # hit shader's on every shade_hits call
+    # 4b. the alpha sweep's kernel on every sweep of that frame; 4b'. the
+    # alpha cull's on every cull; 4c. the hit shader's on every shade_hits
+    # call
     sweep = alpha_sweep_phase("alpha_sweep", seen["alpha_sweep"])
+    cull = alpha_cull_phase("alpha_cull", seen["alpha_cull"])
     shade = hit_shade_phase("hit_shade", seen["hit_shade"])
     del dev, view, seen
     torch.cuda.empty_cache()
@@ -2620,7 +2721,8 @@ def run(args):
     streamed, k_streamed = phase_streamed()
     phase_midframe()
     _, banded_counts = phase_banded_castle()
-    _, k_native, sweep["bench5"], shade["bench5"] = phase_bench5_fidelity()
+    (_, k_native, sweep["bench5"], cull["bench5"],
+     shade["bench5"]) = phase_bench5_fidelity()
     phase_inspector()
 
     # 19. the C ABI: both sample hosts on the card; 20. DDS textures;
@@ -2654,7 +2756,8 @@ def run(args):
     # are sums over the sweeps of one castle frame (4b), and over those of
     # one settled bench config 5 draw as bench5_<key>, with the launches
     # of each draw; it carries its launches in the same paths as K1. So
-    # does the hit shader's kernel, over the shade_hits calls (4c).
+    # does the hit shader's kernel, over the shade_hits calls (4c), and the
+    # alpha cull's, over the culls (4b').
     kernel = lambda name, src, line, launches, row, refl_launches=None, **more: dict(
         name=name, route="cuda", source=f"rt64tpu_torch/csrc/{src}",
         replaces=f"rt64tpu/ops/tracer_pallas.py:{line}", launches=launches,
@@ -2712,6 +2815,24 @@ def run(args):
              abi_launches={h: c["alpha_sweep_launches"]
                            for h, c in abi["launches"].items()},
              train_launches=train["alpha_sweep_launches"]),
+        dict(name="alpha_cull_kernel", route="cuda",
+             source="rt64tpu_torch/csrc/alpha_cull.cu", replaces=None,
+             launches=main["alpha_cull_launches"],
+             **{k: cull[k] for k in measured}, library_ms=None,
+             launches_per_draw=cull["launches"],
+             **{f"bench5_{k}": cull["bench5"][k] for k in measured},
+             bench5_launches_per_draw=cull["bench5"]["launches"],
+             reflection_launches=refl["alpha_cull_launches"],
+             raster_launches=raster["alpha_cull_launches"],
+             upscaled_launches={f"bench{n}": row["alpha_cull_launches"]
+                                for n, row in upscaled.items()},
+             streamed_launches={m: row["alpha_cull_launches"]
+                                for m, row in streamed.items()},
+             banded_launches=band_launches(banded_counts,
+                                           "alpha_cull_launches"),
+             abi_launches={h: c["alpha_cull_launches"]
+                           for h, c in abi["launches"].items()},
+             train_launches=train["alpha_cull_launches"]),
         dict(name="hit_shade_kernel<SHADOW, TEXEL1, NMAP, SMAP, MIPS>",
              route="cuda", source="rt64tpu_torch/csrc/hit_shade.cu",
              replaces=None, launches=main["hit_shade_launches"],

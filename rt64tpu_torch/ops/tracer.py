@@ -462,35 +462,54 @@ def live_bundles(active):
     return bundles[:, None].expand(-1, s).reshape(-1)[:n]
 
 
-def _slab_any_bundled(origins, dirs, t_min, t_max, lo, hi,
-                      sub: int = _CULL_BUNDLE):
-    """Conservative per-ray any-box mask via SUB-ray interval bundles
-    (origin box, direction box, live [t_min, t_max] hull of `sub`
-    adjacent rays) against M boxes. Used only as a compaction
-    prefilter, so a slightly looser mask costs capacity, not results.
-    Dead rays (empty interval) are excluded from the bundle hull and
-    from the returned mask."""
+def _slab_any_bundled(origins, dirs, t_min, t_max, lo, hi):
+    """Conservative per-ray any-box mask via _CULL_BUNDLE-ray interval
+    bundles (origin box, direction box, live [t_min, t_max] hull of
+    adjacent rays) against M boxes. Used only as a compaction prefilter,
+    so a slightly looser mask costs capacity, not results. Dead rays
+    (empty interval) are excluded from the bundle hull and from the
+    returned mask. Where N is no multiple of a bundle, rays are tested
+    one by one. Otherwise CPU tensors take _slab_any_bundled_plain, CUDA
+    tensors the hand-written kernel (tracer_cuda.alpha_cull), whose mask
+    equals the twin's bit for bit."""
     n = origins.shape[1]
-    live = t_max >= t_min
-    if n % sub:
+    if n % _CULL_BUNDLE:
         hit = slab_per_ray(origins, dirs, t_min, t_max, lo, hi)[0]
-        return hit.any(dim=1) & live
-    ns = n // sub
+        return hit.any(dim=1) & (t_max >= t_min)
+    if origins.device.type == "cpu":
+        profiling.count_launch("alpha_cull_launches")
+        return _slab_any_bundled_plain(origins, dirs, t_min, t_max, lo, hi)
+    from rt64tpu_torch.ops import tracer_cuda
+
+    return tracer_cuda.alpha_cull(origins, dirs, t_min, t_max, lo, hi)
+
+
+def _slab_any_bundled_plain(origins, dirs, t_min, t_max, lo, hi):
+    """The alpha cull's plain twin (N a multiple of _CULL_BUNDLE): the
+    bundles' hulls, then _slab_interval_hit over (bundles x M) planes."""
+    live = t_max >= t_min
+    hit, _ = _slab_interval_hit(*bundle_hulls(origins, dirs, t_min, t_max),
+                                lo, hi)
+    return torch.repeat_interleave(hit.any(dim=1), _CULL_BUNDLE) & live
+
+
+def bundle_hulls(origins, dirs, t_min, t_max):
+    """The hulls of the alpha cull's bundles of _CULL_BUNDLE adjacent lanes
+    over their live lanes (t_max >= t_min): (o_lo, o_hi, d_lo, d_hi (3, B),
+    tmin_lo, tmax_hi (B,)); a bundle without a live lane reads o_lo > o_hi.
+    """
+    sub = _CULL_BUNDLE
+    ns = origins.shape[1] // sub
+    live = t_max >= t_min
 
     def b3(a, fill, red):
         m = torch.where(live[None, :], a, fill)
         return red(m.reshape(3, ns, sub), dim=2)
 
-    o_lo = b3(origins, _BIG, torch.amin)
-    o_hi = b3(origins, -_BIG, torch.amax)
-    d_lo = b3(dirs, _BIG, torch.amin)
-    d_hi = b3(dirs, -_BIG, torch.amax)
-    tmin_lo = torch.where(live, t_min, _BIG).reshape(ns, sub).amin(dim=1)
-    tmax_hi = torch.where(live, t_max, -_BIG).reshape(ns, sub).amax(dim=1)
-    hit, _ = _slab_interval_hit(o_lo, o_hi, d_lo, d_hi, tmin_lo, tmax_hi,
-                                lo, hi)
-    bundle_any = hit.any(dim=1)
-    return torch.repeat_interleave(bundle_any, sub) & live
+    return (b3(origins, _BIG, torch.amin), b3(origins, -_BIG, torch.amax),
+            b3(dirs, _BIG, torch.amin), b3(dirs, -_BIG, torch.amax),
+            torch.where(live, t_min, _BIG).reshape(ns, sub).amin(dim=1),
+            torch.where(live, t_max, -_BIG).reshape(ns, sub).amax(dim=1))
 
 
 def _slab_interval_hit(o_lo, o_hi, d_lo, d_hi, tmin_lo, tmax_hi, lo, hi):

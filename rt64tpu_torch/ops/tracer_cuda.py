@@ -21,10 +21,11 @@ packet-granular:
 Each kernel has a plain PyTorch twin that takes the same inputs and
 computes the same function (trace_opaque_plain, trace_shadow_plain,
 trace_opaque_mt_plain, trace_shadow_mt_plain,
-tracer._alpha_sweep_plain). The wrappers choose by
-device only: a CPU tensor takes the plain twin, a CUDA tensor launches
-the kernel (built on first use with nvcc) or raises. Nothing falls back.
-The alpha sweep's choice is made by its one caller, tracer._alpha_sweep.
+tracer._alpha_sweep_plain, tracer._slab_any_bundled_plain). The wrappers
+choose by device only: a CPU tensor takes the plain twin, a CUDA tensor
+launches the kernel (built on first use with nvcc) or raises. Nothing
+falls back. The alpha sweep's and the alpha cull's choices are made by
+their one callers, tracer._alpha_sweep and tracer._slab_any_bundled.
 
 Tie rule (K1, K3 and their twins): among hits, the smallest biased key
 (t - depth bias) wins; among equal keys, the largest triangle id. The
@@ -63,6 +64,15 @@ in 256-entry chunks. Tie rule (kernel and twin): ascending biased key;
 among equal keys the later alpha-list position first, whatever the
 chunk. t, u, v and the bias equal the twin's bit for bit. It replaces no
 TPU kernel: the JAX package runs the sweep as XLA elementwise work.
+
+The alpha cull (alpha_cull) before it: which lanes' 8-lane bundles may
+meet an alpha triangle's box, the prefilter of the compaction in
+tracer.trace_alpha_to_compact. Its kernel, alpha_cull_kernel in
+``rt64tpu_torch/csrc/alpha_cull.cu``, runs one thread per bundle with
+the bundle's hull in registers and the boxes staged through shared
+memory, so no (bundles x boxes) tensor is made; its plain twin is
+tracer._slab_any_bundled_plain. The mask equals the twin's bit for bit.
+It replaces no TPU kernel either.
 
 The size switch (clusters_resident): the JAX package keeps its Woop
 table resident in on-chip memory while it fits RESIDENT_TABLE_BYTES
@@ -155,7 +165,7 @@ class LaunchCounts:
     counts as well. The lock is a class attribute, so vars() of the
     instance holds the counts alone."""
 
-    NAMES = profiling.LAUNCHES  # K1-K4, alpha_sweep_kernel, hit_shade_kernel
+    NAMES = profiling.LAUNCHES  # K1-K4, the alpha sweep, hit shader, alpha cull
     _lock = threading.Lock()
 
     def __init__(self):
@@ -499,6 +509,8 @@ C_SIGNATURES = {
     # alpha_idx, a_cap, k, cull, t, tri, uv, bias, stream
     "rt64_alpha_sweep": [_P, _P, _P, _P, _I, _P, _P, _P, _P, _P, _I, _P, _I,
                          _I, _I, _P, _P, _P, _P, _P],
+    # origins, dirs, t_min, t_max, n, lo, hi, m, mask, stream
+    "rt64_alpha_cull": [_P, _P, _P, _P, _I, _P, _P, _I, _P, _P],
     # tri_rows, n_tri, tri, tri_is64, tri_stride, u, u_stride, v, v_stride,
     # noise, noise_stride, dir, dir_row, dir_lane, t_hit, t_stride, ddx,
     # ddx_row, ddx_lane, ddy, ddy_row, ddy_lane, pool, pool_quads,
@@ -1217,8 +1229,65 @@ def trace_shadow_mt_plain(rays8, clusters, visits, counts, entries):
 
 
 # ---------------------------------------------------------------------------
-# The alpha-class K-hit sweep
+# The alpha path's kernels: the cull and the K-hit sweep
 # ---------------------------------------------------------------------------
+
+
+def _contiguous_inputs(dev, inputs):
+    """Check (name, tensor, dtype, shape) inputs against a kernel's
+    contract (on `dev`, the dtype and shape given) and return their
+    contiguous forms, whose pointers the launch takes."""
+    out = []
+    for name, t, dtype, shape in inputs:
+        if t.device != dev:
+            raise ValueError(f"{name} on {t.device}, origins on {dev}")
+        if t.dtype != dtype or tuple(t.shape) != shape:
+            raise ValueError(f"{name} must be a {shape} {dtype} tensor, got "
+                             f"{tuple(t.shape)} {t.dtype}")
+        out.append(t.contiguous())
+    return out
+
+
+def alpha_cull(origins, dirs, t_min, t_max, lo, hi):
+    """The alpha path's bundled slab cull on a CUDA device: (N,) bool, set
+    on a live lane (t_max >= t_min) whose bundle of tracer._CULL_BUNDLE
+    adjacent lanes, by its interval hull, may meet any of the M boxes lo,
+    hi (3, M); N a multiple of the bundle.
+
+    Launches alpha_cull_kernel (csrc/alpha_cull.cu): one thread a bundle,
+    its hull and per-axis reciprocals in registers, the boxes staged
+    through shared memory without the inverted ones, the walk stopped at
+    the first hit, the plain twin's arithmetic operation for operation, so
+    the mask equals tracer._slab_any_bundled_plain's bit for bit. No
+    (bundles x boxes) tensor is made. Other devices raise."""
+    dev = origins.device
+    if dev.type != "cuda":
+        raise ValueError(f"alpha_cull launches on a CUDA device, not {dev}")
+    n, m = origins.shape[1], lo.shape[1]
+    if n % tracer._CULL_BUNDLE:
+        raise ValueError(f"alpha_cull takes whole {tracer._CULL_BUNDLE}-lane "
+                         f"bundles, got {n} lanes")
+    keep = _contiguous_inputs(dev, (
+        ("origins", origins, torch.float32, (3, n)),
+        ("dirs", dirs, torch.float32, (3, n)),
+        ("t_min", t_min, torch.float32, (n,)),
+        ("t_max", t_max, torch.float32, (n,)),
+        ("lo", lo, torch.float32, (3, m)),
+        ("hi", hi, torch.float32, (3, m)),
+    ))
+    mask = torch.empty((n,), dtype=torch.bool, device=dev)
+    if n == 0:
+        return mask
+    o, d, t0, t1, lo_p, hi_p = (t.data_ptr() for t in keep)
+    lib = kernel_library().lib
+    with torch.cuda.device(dev):  # see _launch_opaque
+        err = lib.rt64_alpha_cull(
+            o, d, t0, t1, n, lo_p, hi_p, m, mask.data_ptr(),
+            torch.cuda.current_stream(dev).cuda_stream)
+    _raise_on(err, "alpha_cull_kernel")
+    launch_counts.add("alpha_cull_launches")
+    return mask
+
 
 MAX_SWEEP_HITS = limits.SceneLimits().max_hit_queries  # the kernel's largest
 
@@ -1256,17 +1325,8 @@ def alpha_sweep(origins, dirs, t_min, t_max, scene: tracer.TraceScene,
         ("alpha_idx", scene.alpha_idx, torch.int64,
          (scene.alpha_idx.shape[0],)),
     )
-    ptrs = []
-    keep = []  # the contiguous copies the pointers address
-    for name, t, dtype, shape in inputs:
-        if t.device != dev:
-            raise ValueError(f"{name} on {t.device}, origins on {dev}")
-        if t.dtype != dtype or tuple(t.shape) != shape:
-            raise ValueError(f"{name} must be a {shape} {dtype} tensor, got "
-                             f"{tuple(t.shape)} {t.dtype}")
-        t = t.contiguous()
-        keep.append(t)
-        ptrs.append(t.data_ptr())
+    keep = _contiguous_inputs(dev, inputs)  # the pointers' tensors
+    ptrs = [t.data_ptr() for t in keep]
     k = k_alpha
     t_out = torch.empty((n, k), dtype=torch.float32, device=dev)
     tri = torch.empty((n, k), dtype=torch.int64, device=dev)

@@ -57,7 +57,8 @@ LAUNCHES = ("opaque_launches",  # K1
             "opaque_mt_launches",  # K3
             "shadow_mt_launches",  # K4
             "alpha_sweep_launches",  # alpha_sweep_kernel
-            "hit_shade_launches")  # hit_shade_kernel
+            "hit_shade_launches",  # hit_shade_kernel
+            "alpha_cull_launches")  # alpha_cull_kernel
 # The reflection bounces' counters (count_reflection).
 REFLECTION = ("reflection_live_rays",  # live mirror rays, summed over bounces
               "reflection_traced_lanes",  # lanes the issued bounces traced

@@ -1,7 +1,7 @@
-"""Card-only tests of the port: K1/K2, K3/K4 and the alpha sweep's
-kernel against their plain twins, the wrappers' launch counting and
-checks, the kernel library loaded once across threads, tiny frames on
-the card against the CPU, and the reflection bounces on their live
+"""Card-only tests of the port: K1/K2, K3/K4, the alpha sweep's and the
+alpha cull's kernels against their plain twins, the wrappers' launch
+counting and checks, the kernel library loaded once across threads, tiny
+frames on the card against the CPU, and the reflection bounces on their live
 mirror rays against the full width. This file imports torch and
 rt64tpu_torch only, so it runs on a machine without JAX:
 
@@ -18,8 +18,8 @@ import torch
 
 from rt64tpu_torch.ops import tracer as ptr
 from rt64tpu_torch.ops import tracer_cuda as tc
-from alpha_sweep_cases import (bits, sweep_rays_torch, sweep_scene,
-                               trace_scene)
+from alpha_sweep_cases import (CULL_CASES, bits, castle_sweep, cull_case,
+                               sweep_rays_torch, sweep_scene)
 import reflection_cases as rc
 
 pytestmark = pytest.mark.cuda
@@ -328,59 +328,7 @@ def _random_sweep(n):
     return scene, sweep_rays_torch("mixed", n, seed=17, dead=0.25)
 
 
-def _castle_sweep(n):
-    """The benchmark's castle (portbench/scene.py, the 4K cell's
-    configuration) in world space, with the alpha list the frame builds
-    from it (compact_alpha at the frame's 256 entries, spatially sorted);
-    camera rays from the walk's orbit aimed at the billboards, and shadow
-    rays from the billboards towards the first light."""
-    import json
-    import os
-
-    from portbench import scene as sc
-
-    bench = os.path.join(os.path.dirname(__file__), os.pardir, "portbench")
-    with open(os.path.join(bench, "configs", "castle-4k-dlss.json")) as f:
-        cfg = json.load(f)
-    with open(os.path.join(bench, "traffic", "walk.json")) as f:
-        walk = json.load(f)
-    data = sc.build_scene(cfg["scene"], walk["character"], seed=2987654321)
-    corners, alpha, no_cull = [], [], []
-    for inst in data.instances:
-        m = data.meshes[inst.mesh]
-        world = np.c_[m.positions, np.ones(len(m.positions))] @ inst.transform
-        corners.append(world[m.indices][..., :3].astype(np.float32))
-        alpha += [inst.shader == "leaf"] * len(m.indices)
-        no_cull += [inst.no_cull] * len(m.indices)
-    tris = np.concatenate(corners)  # (T, 3 corners, 3)
-    v0, v1, v2 = (tris[:, c].T for c in range(3))
-    alpha = np.array(alpha)
-    t = alpha.shape[0]
-    scene = trace_scene(v0, v1, v2, np.array(no_cull),
-                        np.zeros(t, np.float32), np.zeros(0, np.int64), alpha)
-    scene = scene._replace(alpha_idx=ptr.sort_alpha_spatial(
-        ptr.compact_alpha(scene.valid, scene.alpha, 256), scene.v0, scene.v1,
-        scene.v2))
-    rng = np.random.default_rng(3)
-    leaves = np.array([data.instances[i].transform[3, :3] for i in data.foliage])
-    aim = leaves[rng.integers(0, len(leaves), n)] + rng.uniform(
-        -1.2, 1.2, (n, 3)) + [0.0, 0.8, 0.0]
-    orbit = walk["orbit"]
-    yaw = rng.uniform(0, 2 * np.pi, n)
-    eye = np.stack([orbit["center"][0] + orbit["radius"] * np.sin(yaw),
-                    np.full(n, orbit["eye_height"]),
-                    orbit["center"][2] + orbit["radius"] * np.cos(yaw)], 1)
-    shadow = rng.uniform(size=n) < 0.3
-    light = np.array(data.lights[0]["position"])
-    o = np.where(shadow[:, None], aim, eye)
-    d = np.where(shadow[:, None], light - aim, aim - eye)
-    t_min = np.where(shadow, 1e-3, 0.1)
-    t_max = np.where(shadow, 1.0, 1e5)
-    f = lambda a: torch.from_numpy(np.ascontiguousarray(a, np.float32))
-    return scene, [f(o.T), f(d.T), f(t_min), f(t_max)]
-
-
-SWEEPS = {"random": _random_sweep, "castle": _castle_sweep}
+SWEEPS = {"random": _random_sweep, "castle": castle_sweep}
 
 
 @pytest.mark.parametrize("case", sorted(SWEEPS))
@@ -412,7 +360,7 @@ def test_alpha_sweep_on_the_frame_path(card):
     """The frame's compacted alpha trace (slab cull, compaction, sweep,
     behind mask) on the card launches the kernel once and equals the CPU
     bit for bit on the castle; k above MAX_SWEEP_HITS raises on the card."""
-    scene, (o, d, t_min, t_max) = _castle_sweep(8192)
+    scene, (o, d, t_min, t_max) = castle_sweep(8192)
     noise = torch.from_numpy(
         np.random.default_rng(5).uniform(size=o.shape[1]).astype(np.float32))
     t_opb = torch.where(torch.arange(o.shape[1]) % 2 == 0, 1e5, 40.0)
@@ -434,6 +382,73 @@ def test_alpha_sweep_on_the_frame_path(card):
     with pytest.raises(ValueError, match="k_alpha"):
         tc.alpha_sweep(*args(card, card_scene)[:5], tc.MAX_SWEEP_HITS + 1,
                        True)
+
+
+def _on(scene, dev):
+    return scene._replace(**{f: getattr(scene, f).to(dev)
+                             for f in scene._fields if f != "has_alpha"})
+
+
+@pytest.mark.parametrize("case", CULL_CASES)
+def test_alpha_cull_matches_plain_twin(card, case):
+    """alpha_cull_kernel against its plain twin on the same card and on
+    the CPU, the same inputs (alpha_sweep_cases.CULL_CASES): the masks
+    equal, one launch. Some lanes are set and some not."""
+    args = cull_case(case)
+    before = tc.launch_counts.alpha_cull_launches
+    got = tc.alpha_cull(*[a.to(card) for a in args])
+    assert tc.launch_counts.alpha_cull_launches == before + 1
+    want = ptr._slab_any_bundled_plain(*[a.to(card) for a in args])
+    assert got.dtype == torch.bool and torch.equal(got, want)
+    assert torch.equal(got.cpu(), ptr._slab_any_bundled_plain(*args))
+    assert want.any() and not want.all()
+
+
+def test_alpha_cull_at_the_4k_shadow_width(card):
+    """The 4K frame's DI shadow batch's width (4,147,200 lanes) over the
+    castle's boxes: the mask equals the twin's on the card, and the launch
+    allocates the mask alone, no (bundles x boxes) tensor: the allocated
+    bytes grow by less than one a (bundle, box) pair (the caching
+    allocator may hand the mask's N bytes a larger cached block)."""
+    n = 4_147_200
+    args = [a.to(card) for a in cull_case("castle", n=n)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    got = tc.alpha_cull(*args)
+    torch.cuda.synchronize()
+    grown = torch.cuda.max_memory_allocated() - base
+    assert n <= grown < n // 8 * args[4].shape[1], grown
+    want = ptr._slab_any_bundled_plain(*args)
+    assert torch.equal(got, want)
+    assert want.any() and not want.all()
+    with pytest.raises(ValueError, match="bundles"):
+        tc.alpha_cull(*[a[..., :n - 3] for a in args[:4]], *args[4:])
+
+
+@pytest.mark.parametrize("capacity", [8192, 256])
+def test_alpha_cull_on_the_frame_path(card, monkeypatch, capacity):
+    """The frame's compacted alpha trace on the card with the cull's
+    kernel, and with its plain twin forced: idx, mask, t, tri, uv and
+    dropped equal bit for bit (at capacity 256 candidates are dropped),
+    one alpha_cull_kernel launch a call."""
+    scene, rays = castle_sweep(8192, coherent=True)
+    noise = torch.from_numpy(
+        np.random.default_rng(5).uniform(size=8192).astype(np.float32))
+    t_opb = torch.where(torch.arange(8192) % 2 == 0, 1e5, 40.0)
+    args = ([r.to(card) for r in rays]
+            + [_on(scene, card), 4, True, capacity, noise.to(card)])
+    before = tc.launch_counts.alpha_cull_launches
+    got = ptr.trace_alpha_to_compact(*args, t_opaque_biased=t_opb.to(card))
+    assert tc.launch_counts.alpha_cull_launches == before + 1
+    monkeypatch.setattr(tc, "alpha_cull", ptr._slab_any_bundled_plain)
+    want = ptr.trace_alpha_to_compact(*args, t_opaque_biased=t_opb.to(card))
+    for name in ("idx", "mask", "t", "tri", "uv"):
+        assert torch.equal(bits(getattr(got, name)),
+                           bits(getattr(want, name))), name
+    assert int(got.dropped) == int(want.dropped)
+    assert (int(want.dropped) > 0) == (capacity == 256)
+    assert (want.tri >= 0).sum() > 100
 
 
 @pytest.mark.parametrize("gi", [0, 1])
@@ -586,8 +601,9 @@ def test_frame_stats_equal_launch_counts(card, monkeypatch, resident):
             else ("opaque_mt_launches", "shadow_mt_launches"))
     assert all(delta[k] > 0 for k in used), delta
     assert sum(delta.values()) == sum(delta[k] for k in used) + delta[
-        "alpha_sweep_launches"] + delta["hit_shade_launches"]
-    assert delta["hit_shade_launches"] > 0
+        "alpha_sweep_launches"] + delta["hit_shade_launches"] + delta[
+        "alpha_cull_launches"]
+    assert delta["hit_shade_launches"] > 0 and delta["alpha_cull_launches"] > 0
 
 
 def _raster_inputs(seed, n=12, width=96, height=64):

@@ -6,8 +6,9 @@ of the size switch (tracer_cuda.clusters_resident; RESIDENT_TABLE_BYTES
 
 - A profiled draw counts one launch a call of each wrapper's plain
   twin (the launch a card would make): K3/K4 and no K1/K2 past the
-  switch, K1/K2 and no K3/K4 below it, the alpha sweep and the hit
-  shader on both sides.
+  switch, K1/K2 and no K3/K4 below it, the alpha sweep, the hit shader
+  and the alpha cull on both sides; the alpha cull once a compacted
+  alpha trace (tracer.trace_alpha_to_compact).
   launch_counts stands still (a CPU tensor launches no kernel; on the
   card the record equals its deltas: tests/test_torch_cuda.py).
 - Nothing is counted while no profiler records.
@@ -16,6 +17,8 @@ of the size switch (tracer_cuda.clusters_resident; RESIDENT_TABLE_BYTES
   the tables without the span.
 - A frame drawn in two bands (parallel/tiling.py, in turn) adds both
   bands' launches to the one record.
+- The alpha cull's twin marks every live lane that the per-ray slab test
+  marks (its bundles' hulls hold their lanes' rays) and no dead lane.
 """
 
 import collections
@@ -29,13 +32,15 @@ from rt64tpu_torch.ops import tracer as ptr
 from rt64tpu_torch.ops import tracer_cuda as tc
 from rt64tpu_torch.parallel import tiling
 from rt64tpu_torch.utils import profiling, testscenes
+from alpha_sweep_cases import CULL_CASES, cull_case
 
 TWINS = {"opaque_launches": (tc, "trace_opaque_plain"),
          "shadow_launches": (tc, "trace_shadow_plain"),
          "opaque_mt_launches": (tc, "trace_opaque_mt_plain"),
          "shadow_mt_launches": (tc, "trace_shadow_mt_plain"),
          "alpha_sweep_launches": (ptr, "_alpha_sweep_plain"),
-         "hit_shade_launches": (shading, "shade_hits_plain")}
+         "hit_shade_launches": (shading, "shade_hits_plain"),
+         "alpha_cull_launches": (ptr, "_slab_any_bundled_plain")}
 KERNELS = {False: ("opaque_mt_launches", "shadow_mt_launches"),
            True: ("opaque_launches", "shadow_launches")}
 
@@ -145,3 +150,52 @@ def test_band_workers_add_their_launches(monkeypatch):
     assert {k: st[k] for k in profiling.LAUNCHES} == {
         k: calls[k] for k in profiling.LAUNCHES}
     assert st["opaque_mt_launches"] >= 8 and st["opaque_launches"] == 0
+
+
+@pytest.mark.parametrize("resident", [True, False],
+                         ids=["below_switch", "past_switch"])
+def test_alpha_cull_counts_once_per_compact_trace(monkeypatch, resident):
+    """A profiled draw counts alpha_cull_launches once a
+    trace_alpha_to_compact call: every call's lanes are whole bundles."""
+    dev, _ = _scene(monkeypatch, resident)
+    dev.draw()
+    widths = []
+    real = ptr.trace_alpha_to_compact
+
+    def spy(origins, *args, **kw):
+        widths.append(origins.shape[1])
+        return real(origins, *args, **kw)
+
+    monkeypatch.setattr(ptr, "trace_alpha_to_compact", spy)
+    profiling.reset_frame_stats()
+    with profile(activities=[ProfilerActivity.CPU]):
+        dev.draw()
+    st = profiling.frame_stats()
+    profiling.reset_frame_stats()
+    assert widths and all(w % ptr._CULL_BUNDLE == 0 for w in widths), widths
+    assert st["alpha_cull_launches"] == len(widths)
+
+
+@pytest.mark.parametrize("case", CULL_CASES)
+def test_bundled_cull_covers_the_per_ray_test(case):
+    """The cull's twin against the per-lane slab test (slab_per_ray's ANY
+    over the boxes): every live lane that the per-lane test marks is
+    marked (the bundle test is a superset), no dead lane is, and some
+    bundle hull is looser than its lanes. Bundles with a live lane whose
+    origin or direction is not finite are left out of the superset check:
+    a NaN origin puts a NaN into the twin's hull, which can leave lanes
+    that the per-lane test marks unmarked (the card's kernel does the
+    same, tests/test_torch_cuda.py)."""
+    o, d, t_min, t_max, lo, hi = cull_case(case, n=4096)
+    live = t_max >= t_min
+    per_ray = ptr.slab_per_ray(o, d, t_min, t_max, lo, hi)[0].any(1) & live
+    bundled = ptr._slab_any_bundled_plain(o, d, t_min, t_max, lo, hi)
+    finite = (torch.isfinite(o).all(0) & torch.isfinite(d).all(0)) | ~live
+    whole = finite.view(-1, ptr._CULL_BUNDLE).all(1).repeat_interleave(
+        ptr._CULL_BUNDLE)
+    assert per_ray.any() and whole.any()
+    assert not (per_ray & ~bundled & whole).any()
+    assert not (bundled & ~live).any()
+    assert (bundled & ~per_ray).any()
+    assert torch.equal(ptr._slab_any_bundled(o, d, t_min, t_max, lo, hi),
+                       bundled)

@@ -337,6 +337,12 @@ def test_constants_match_the_cuda_sources():
             assert f"{name} =" not in text, name
 
 
+def test_alpha_cull_bundle_matches_the_cuda_source():
+    """The alpha cull's kernel tests the bundles the twin forms."""
+    assert int(_constant(_source("alpha_cull.cu"),
+                         "CULL_BUNDLE")) == ptr._CULL_BUNDLE
+
+
 def test_c_signatures_match_the_cuda_sources():
     """Every extern "C" function is declared to ctypes with one argtype
     per parameter: c_void_p for a pointer or the stream (anything else
